@@ -52,6 +52,14 @@ class LocalFSBackend:
             raise FileNotFoundError(f"no blob {key!r} in {self.root}")
         return cio.load_frame(path, mmap=self.mmap_reads)
 
+    def patch(self, key: str, patch) -> int:
+        """Rewrite the row spans of a PatchSet into the frame ``key`` in
+        place (the fold of a patch chain into its base)."""
+        path = self._path(key)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no blob {key!r} in {self.root}")
+        return cio.patch_frame(path, patch)
+
     def delete(self, key: str) -> None:
         try:
             os.unlink(self._path(key))

@@ -10,15 +10,18 @@ leaf: byte ``offset`` (relative to the 64-byte-aligned data section),
 ``np.memmap``. The same tree written by either package gives the same
 bytes, and each package reads the other's frames.
 
-The codec covers the containers of the lowdiff path: dict, list,
-tuple, NamedTuple (keyed by class name — ``AdamState``), ``SparseGrad``
-(indices written as int32 under ``"__t": "sparse"``, as the reference
-writes them), torch tensors, numpy arrays and python scalars. bfloat16
-leaves are stored as uint16 views referenced by negative index and come
-back as torch bfloat16 tensors.
+The codec covers the containers of the lowdiff and lowdiff_plus paths:
+dict, list, tuple, NamedTuple (keyed by class name — ``AdamState``,
+``RowUpdate``), ``SparseGrad`` (indices written as int32 under
+``"__t": "sparse"``, as the reference writes them), ``QuantSpan``
+(``"__t": "qspan"``, wire bytes verbatim), torch tensors, numpy arrays
+and python scalars. bfloat16 leaves are stored as uint16 views
+referenced by negative index and come back as torch bfloat16 tensors.
 
 Writes go through :func:`atomic_write` (temp file + fsync + rename +
 parent-directory fsync), so readers never observe a torn checkpoint.
+:func:`patch_frame` rewrites row ranges of a frame in place (the fold
+of an incremental patch chain into its base).
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.patchset import PatchSet, RowUpdate
+from repro_torch.compression.quant_span import QuantSpan
 from repro_torch.compression.sparse import SparseGrad
 from repro_torch.optim.adam import AdamState
 
@@ -48,6 +53,7 @@ def register_namedtuple(cls) -> type:
 
 
 register_namedtuple(AdamState)
+register_namedtuple(RowUpdate)
 
 
 class FrameCorruptionError(ValueError):
@@ -149,6 +155,12 @@ def _pack(obj, arrays: List[np.ndarray]):
                 "block": int(obj.block),
                 "values": _arr(obj.values, arrays),
                 "indices": _arr(obj.indices, arrays)}
+    if isinstance(obj, QuantSpan):
+        return {"__t": "qspan", "shape": list(obj.shape),
+                "bits": int(obj.bits), "dtype": str(obj.dtype),
+                "starts": [int(s) for s in obj.starts],
+                "qs": [_arr(q, arrays) for q in obj.qs],
+                "scales": [_arr(s, arrays) for s in obj.scales]}
     if isinstance(obj, dict):
         return {"__t": "dict",
                 "items": {k: _pack(v, arrays) for k, v in obj.items()}}
@@ -195,6 +207,14 @@ def _unpack(node, arrays):
         return SparseGrad(_get(node["values"], arrays),
                           _get(node["indices"], arrays),
                           tuple(node["shape"]), node["block"])
+    if t == "qspan":
+        return QuantSpan(starts=tuple(int(s) for s in node["starts"]),
+                         qs=[np.asarray(_get(i, arrays))
+                             for i in node["qs"]],
+                         scales=[np.asarray(_get(i, arrays))
+                                 for i in node["scales"]],
+                         shape=tuple(node["shape"]), bits=int(node["bits"]),
+                         dtype=node["dtype"])
     if t == "dict":
         return {k: _unpack(v, arrays) for k, v in node["items"].items()}
     if t == "nt":
@@ -360,6 +380,129 @@ def frame_dumps(obj: Any) -> bytes:
         out[pos:pos + len(b)] = b
         pos += len(b)
     return bytes(out)
+
+
+#: test seam: callable(point: str) fired inside :func:`patch_frame` at
+#: "patch:mid_span" (after the first span's pwrite when more spans
+#: remain), "patch:mid_data" (after the first leaf's spans),
+#: "patch:pre_header" (data fsync'd, header still old) and
+#: "patch:mid_header" (half the header rewritten). Raising from the hook
+#: simulates a kill at exactly that point.
+_PATCH_CRASH_HOOK = None
+
+
+def set_patch_crash_hook(hook) -> None:
+    global _PATCH_CRASH_HOOK
+    _PATCH_CRASH_HOOK = hook
+
+
+def patch_frame(path: str, patch: PatchSet) -> int:
+    """In-place partial rewrite of a frame file: overwrite the patched
+    row ranges at ``leaf_offset + row_start * row_stride`` (the layout
+    never moves), then rewrite the header with the new sha256s
+    (``patch`` is a :class:`PatchSet`). Write order
+    is the crash-consistency contract: span bytes are written and
+    fsync'd first, each patched leaf's sha256 is recomputed (over the
+    whole leaf, read back, when only some rows changed), and the header
+    (same byte length: fixed-width digests) is rewritten last. A crash
+    leaves torn ranges or stale digests, which is why callers journal
+    each patch as a durable blob before folding it. Returns bytes
+    written."""
+    if not isinstance(patch, PatchSet):
+        raise TypeError(f"patch_frame takes a PatchSet, not "
+                        f"{type(patch).__name__}")
+    hook = _PATCH_CRASH_HOOK
+    magic_len = len(FRAME_MAGIC)
+    with open(path, "r+b") as f:
+        head = f.read(magic_len + 8)
+        if len(head) < magic_len + 8 or head[:magic_len] != FRAME_MAGIC:
+            raise FrameCorruptionError(
+                f"{path}: not a frame (bad magic); only frame files can "
+                f"be patched in place")
+        (hlen,) = _struct.unpack("<Q", head[magic_len:magic_len + 8])
+        try:
+            header = json.loads(f.read(hlen).decode("utf-8"))
+        except (json.JSONDecodeError, UnicodeDecodeError) as e:
+            raise FrameCorruptionError(f"{path}: header parse failed") from e
+        pre = magic_len + 8 + hlen
+        data_start = pre + (-pre) % FRAME_ALIGN
+        by_name = {leaf["name"]: leaf for leaf in header["leaves"]}
+        written = 0
+        total_spans = patch.span_count
+        spans_done = 0
+        fired_span = fired_mid = False
+        for name in patch:
+            rec = by_name.get(name)
+            if rec is None:
+                raise ValueError(f"{path}: frame has no leaf {name!r}")
+            rshape = tuple(rec["shape"])
+            rows = rshape[0] if rshape else 1
+            stride = int(rec["nbytes"]) // rows if rows else 0
+            whole = patch.is_whole(name)
+            if whole and list(patch.shape_of(name)) != list(rec["shape"]):
+                raise ValueError(
+                    f"{path}: leaf {name!r} layout mismatch "
+                    f"({patch.shape_of(name)} != {tuple(rec['shape'])}); "
+                    f"in-place patching never moves the frame layout")
+            view = b""
+            for sp in patch[name]:
+                a = np.asarray(sp.data)
+                span_rows = int(a.shape[0]) if a.ndim else 1
+                if a.dtype.str != rec["dtype"] or (
+                        (sp.start != 0 or list(a.shape) != rec["shape"])
+                        and (not rshape or a.ndim == 0
+                             or a.shape[1:] != rshape[1:]
+                             or sp.start + span_rows > rows)):
+                    raise ValueError(
+                        f"{path}: leaf {name!r} layout mismatch "
+                        f"(rows [{sp.start}, {sp.start + span_rows}) of "
+                        f"{a.dtype.str}{a.shape} != "
+                        f"{rec['dtype']}{rshape}); in-place "
+                        f"patching never moves the frame layout")
+                a = a if a.flags.c_contiguous else np.ascontiguousarray(a)
+                view = _byte_view(a)
+                f.seek(data_start + rec["offset"] + sp.start * stride)
+                f.write(view)
+                written += int(a.nbytes)
+                spans_done += 1
+                if hook is not None and not fired_span \
+                        and spans_done < total_spans:
+                    fired_span = True
+                    f.flush()
+                    os.fsync(f.fileno())
+                    hook("patch:mid_span")
+            if whole:
+                rec["sha256"] = hashlib.sha256(view).hexdigest()
+            else:
+                f.flush()
+                f.seek(data_start + rec["offset"])
+                raw = f.read(int(rec["nbytes"]))
+                rec["sha256"] = hashlib.sha256(raw).hexdigest()
+            if hook is not None and not fired_mid:
+                fired_mid = True
+                f.flush()
+                os.fsync(f.fileno())
+                hook("patch:mid_data")
+        f.flush()
+        os.fsync(f.fileno())           # data durable before the header
+        hjson = json.dumps(header).encode("utf-8")
+        if len(hjson) != hlen:
+            raise ValueError(f"{path}: patched header length diverged "
+                             f"({len(hjson)} != {hlen}); frame is not "
+                             f"patchable in place")
+        if hook is not None:
+            hook("patch:pre_header")
+        mid = hlen // 2
+        f.seek(magic_len + 8)
+        f.write(hjson[:mid])
+        if hook is not None:
+            f.flush()
+            os.fsync(f.fileno())
+            hook("patch:mid_header")
+        f.write(hjson[mid:])
+        f.flush()
+        os.fsync(f.fileno())
+    return written + hlen
 
 
 def _parse_frame(buf: np.ndarray, *, verify: bool,

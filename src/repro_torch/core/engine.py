@@ -1,5 +1,6 @@
 """Engine configuration + factory (port of ``repro.core.engine``, the
-subset for ``--strategy lowdiff|none`` over the local backend).
+subset for ``--strategy lowdiff|lowdiff_plus|none`` over the local
+backend).
 
 :data:`FLAG_MAP` maps every launcher flag that configures the engine or
 the store to its config field; :meth:`EngineConfig.from_args` is the one
@@ -13,7 +14,7 @@ from typing import Any, Dict, Optional
 from repro_torch.checkpoint.backends import BACKENDS, make_backend
 from repro_torch.checkpoint.store import CheckpointStore
 
-STRATEGIES = ("none", "lowdiff")
+STRATEGIES = ("none", "lowdiff", "lowdiff_plus")
 
 #: argparse dest -> (scope, field); scopes "engine" and "store"
 FLAG_MAP: Dict[str, tuple] = {
@@ -23,6 +24,12 @@ FLAG_MAP: Dict[str, tuple] = {
     "full_interval": ("engine", "full_interval"),
     "batch_size": ("engine", "batch_size"),
     "compressor": ("engine", "compressor"),
+    "persist_mode": ("engine", "persist_mode"),
+    "persist_threshold": ("engine", "persist_threshold"),
+    "dirty_granularity": ("engine", "dirty_granularity"),
+    "diff_quant": ("engine", "diff_quant"),
+    "fold_interval": ("engine", "fold_interval"),
+    "fold_amplification": ("engine", "fold_amplification"),
     "replay_window": ("engine", "replay_window"),
     "replay_device": ("engine", "replay_device"),
     "snapshot_shards": ("engine", "snapshot_shards"),
@@ -54,6 +61,12 @@ class EngineConfig:
     full_interval: int = 20     #: 0 = Eq. (10) optimum + online tuning
     batch_size: int = 2         #: 0 = Eq. (10) optimum + online tuning
     compressor: str = "topk"
+    persist_mode: str = "full"
+    persist_threshold: float = 0.0
+    dirty_granularity: str = "leaf"
+    diff_quant: str = "off"     #: quantize row-span patches (int8/int4)
+    fold_interval: int = 16
+    fold_amplification: float = 1.5
     replay_window: int = 0
     replay_device: bool = False   #: stage compressed payloads on device
     snapshot_shards: int = 4
@@ -69,6 +82,18 @@ class EngineConfig:
         if self.strategy not in STRATEGIES:
             raise ConfigError(
                 f"strategy: {self.strategy!r} is not one of {STRATEGIES}")
+        if self.persist_mode not in ("full", "incremental"):
+            raise ConfigError(
+                f"persist_mode: {self.persist_mode!r} is not "
+                f"'full'/'incremental'")
+        if self.dirty_granularity not in ("leaf", "row"):
+            raise ConfigError(
+                f"dirty_granularity: {self.dirty_granularity!r} is not "
+                f"'leaf'/'row'")
+        if self.diff_quant not in ("off", "int8", "int4"):
+            raise ConfigError(
+                f"diff_quant: {self.diff_quant!r} is not one of "
+                f"('off', 'int8', 'int4')")
         if self.compressor != "topk":
             raise ConfigError(
                 f"compressor: {self.compressor!r} is not ported ('topk')")
@@ -104,6 +129,16 @@ def make_engine(cfg: EngineConfig, model, store=None):
         return None
     if store is None:
         store = cfg.build_store()
+    if cfg.strategy == "lowdiff_plus":
+        from repro_torch.core.lowdiff_plus import LowDiffPlus
+        return LowDiffPlus(model, store, lr=cfg.lr,
+                           persist_interval=cfg.batch_size or 1,
+                           persist_mode=cfg.persist_mode,
+                           persist_threshold=cfg.persist_threshold,
+                           dirty_granularity=cfg.dirty_granularity,
+                           fold_interval=cfg.fold_interval,
+                           fold_amplification=cfg.fold_amplification,
+                           diff_quant=cfg.diff_quant, device=cfg.device)
     from repro_torch.core.config_opt import SystemParams
     from repro_torch.core.lowdiff import LowDiff
     return LowDiff(model, store, rho=cfg.rho, lr=cfg.lr,

@@ -12,9 +12,10 @@ Eq. (10) optimum unless overridden, and the online tuner keeps
 re-solving Eq. (10) from observed merge times.
 
 Recovery: load the latest full checkpoint, then replay the differential
-chain through the same ``topk_apply`` kernel the step used — serially
-or device-staged (``replay_device``). The reference's default parallel
-replay is not ported yet.
+chain: by default as a log-depth parallel scan (``replay_parallel``,
+equal to serial replay up to float reassociation), or serially / device-
+staged (``replay_device``) through the same ``topk_apply`` kernel the
+step used, which recovers the trained state bit for bit.
 """
 from __future__ import annotations
 
@@ -63,16 +64,12 @@ class LowDiff:
                  batch_size: Optional[int] = None,
                  sys_params: Optional[SystemParams] = None,
                  batch_mode: str = "concat", queue_size: int = 4,
-                 parallel_recovery: bool = False,
+                 parallel_recovery: bool = True,
                  error_feedback: bool = True, compressor: str = "topk",
                  flush_timeout: float = 120.0,
                  replay_window: Optional[int] = None,
                  replay_device: bool = False,
                  snapshot_shards: int = 4, device=None):
-        if parallel_recovery:
-            raise NotImplementedError(
-                "parallel recovery (replay_parallel) is not ported yet "
-                "(ROADMAP §1 item 8); use serial or replay_device")
         self.model, self.store = model, store
         self.device = resolve_device(device)
         self.rho, self.lr = rho, lr
@@ -247,9 +244,15 @@ class LowDiff:
             state, diffs = rec.load_latest_chain(self.store)
         diffs = rec.contiguous_prefix(int(state["step"]), diffs)
         with trace_span("recovery.replay", "recovery", n=len(diffs),
-                        mode="device" if self.replay_device else "serial"):
+                        mode=("device" if self.replay_device else
+                              "parallel" if self.parallel_recovery
+                              else "serial")):
             if self.replay_device:
                 params, opt, applied = rec.replay_device(
+                    state["params"], state["opt"], diffs, lr=self.lr,
+                    window=self.replay_window, device=self.device)
+            elif self.parallel_recovery:
+                params, opt, applied = rec.replay_parallel(
                     state["params"], state["opt"], diffs, lr=self.lr,
                     window=self.replay_window, device=self.device)
             else:

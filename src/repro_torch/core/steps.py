@@ -13,6 +13,9 @@ Modes:
              the payload, that recovery replays, so the compressed
              gradient G̃_t is an exact differential checkpoint. G̃_t is
              returned for the Reusing Queue.
+  lowdiff_plus — the dense step (K3) that also returns the dense
+             gradient tree, which LowDiff+ offloads layer by layer to
+             its host replica.
 
 The state is a dict of device tensors — {"params", "opt": AdamState,
 "step", ["ef"]} — replaced, not updated in place, every step: a
@@ -116,13 +119,13 @@ def make_train_step(model, *, mode: str = "lowdiff", rho: float = 0.01,
                     eps: float = 1e-8, error_feedback: bool = True,
                     compressor: str = "topk"):
     """``step(state, batch) -> (state', metrics, extra)``; extra is the
-    compressed gradient tree in lowdiff mode, else None."""
+    compressed gradient tree in lowdiff mode, the dense gradient tree in
+    lowdiff_plus mode, else None."""
     if compressor != "topk":
         raise NotImplementedError(
             f"compressor {compressor!r} is not ported (ROADMAP slice 3)")
-    if mode not in ("lowdiff", "dense"):
-        raise NotImplementedError(
-            f"step mode {mode!r} is not ported (ROADMAP slice 2)")
+    if mode not in ("lowdiff", "dense", "lowdiff_plus"):
+        raise ValueError(f"unknown step mode {mode!r}")
     cfg = model.cfg
 
     def step(state, batch):
@@ -140,6 +143,8 @@ def make_train_step(model, *, mode: str = "lowdiff", rho: float = 0.01,
             extra, payloads = cg, cg
         else:
             payloads = grads
+            if mode == "lowdiff_plus":
+                extra = grads
         del grads
         params2, opt2 = _apply_tree(params, payloads, opt, hyper, count)
         new_state = {"params": params2, "opt": opt2,

@@ -14,6 +14,7 @@ import torch
 from repro_torch.compression.sparse import BLOCK, SparseGrad, k_for
 from repro_torch.kernels import fused_adam as _fa
 from repro_torch.kernels import replay as _rp
+from repro_torch.kernels import span as _sp
 from repro_torch.kernels import topk as _tk
 from repro_torch.kernels.ref import to_blocks as _to_blocks  # noqa: F401
 from repro_torch.optim.adam import bias_corrections
@@ -31,6 +32,26 @@ def topk_decompress(sg: SparseGrad) -> torch.Tensor:
         n *= int(d)
     return _tk.topk_scatter(sg.values, sg.indices, n,
                             block=sg.block).reshape(sg.shape)
+
+
+def quant_span_encode(x2d: torch.Tensor, *, bits: int):
+    """Quantize an (n, cols) row block with per-row absmax scales (K5):
+    (q (n, wire_cols), scale (n, 1) f32), the bytes ``encode_rows``
+    gives."""
+    return _sp.span_pack(x2d, bits)
+
+
+def quant_span_decode(q: torch.Tensor, scale: torch.Tensor, *, cols: int,
+                      bits: int) -> torch.Tensor:
+    """Inverse of :func:`quant_span_encode` (K6): dense f32 (n, cols)."""
+    return _sp.quant_span_decode(q, scale, cols, bits)
+
+
+def fused_span_apply(dst: torch.Tensor, start: int, q: torch.Tensor,
+                     scale: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """Dequantize one row-span payload into rows [start, start + n) of
+    the state leaf ``dst`` (K7), in place; returns ``dst``."""
+    return _sp.quant_span_apply(q, scale, dst, start, bits)
 
 
 def adam_hyper_traced(lr, b1, b2, eps, count: torch.Tensor) -> torch.Tensor:

@@ -86,3 +86,61 @@ def topk_apply_ref(vals, idxs, p, mu, nu, hyper, *, block: int):
                     device=vals.device)
     g.scatter_add_(1, idxs.long(), vals.float())
     return adam_replay_update_ref(p, g, mu, nu, hyper)
+
+
+# -------------------- quantized row-span codec (K5-K7) ---------------
+
+def span_pack_ref(x2d: torch.Tensor, bits: int):
+    """K5: per-row absmax quantize an (n, cols) row block -> (q (n,
+    wire_cols) int8 | nibble-packed uint8, scale (n, 1) f32). scale =
+    max(absmax * f32(1/qmax), 1e-12), q = clip(round-half-even(x /
+    scale), +-qmax); an odd int4 row gets a zero pad column."""
+    x = x2d.float()
+    n, cols = x.shape
+    qmax = 127.0 if bits == 8 else 7.0
+    if cols == 0:
+        return (torch.zeros((n, 0), dtype=torch.int8 if bits == 8
+                            else torch.uint8, device=x.device),
+                torch.full((n, 1), 1e-12, dtype=torch.float32,
+                           device=x.device))
+    if bits == 4 and cols % 2:
+        x = F.pad(x, (0, 1))
+    recip = torch.tensor(1.0 / qmax, dtype=torch.float32, device=x.device)
+    floor = torch.tensor(1e-12, dtype=torch.float32, device=x.device)
+    scale = torch.maximum(x.abs().amax(dim=1, keepdim=True) * recip, floor)
+    qi = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
+    if bits == 8:
+        return qi.to(torch.int8), scale
+    lo = qi[:, 0::2] & 0xF
+    hi = qi[:, 1::2] & 0xF
+    return (lo | (hi << 4)).to(torch.uint8), scale
+
+
+def span_decode_ref(q: torch.Tensor, scale: torch.Tensor, cols: int,
+                    bits: int) -> torch.Tensor:
+    """K6: wire bytes -> dense f32 (n, cols) = f32(q) * scale, the int4
+    nibbles (low = even column) sign-extended."""
+    if bits == 8:
+        g = q.float()
+    else:
+        u = q.to(torch.int32)
+        lo = u & 0xF
+        hi = (u >> 4) & 0xF
+        lo = torch.where(lo > 7, lo - 16, lo)
+        hi = torch.where(hi > 7, hi - 16, hi)
+        g = torch.stack([lo, hi], dim=2).reshape(q.shape[0], -1).float()
+    return g[:, :cols] * scale.reshape(-1, 1)
+
+
+def quant_span_apply_ref(q, scale, dst: torch.Tensor, start: int, *,
+                         bits: int) -> torch.Tensor:
+    """K7: decode one row-span payload into rows [start, start + n) of
+    ``dst``, cast to its dtype, in place; returns ``dst``."""
+    n = q.shape[0]
+    cols = 1
+    for d in dst.shape[1:]:
+        cols *= int(d)
+    rows = span_decode_ref(q, scale, cols, bits)
+    dst[start:start + n] = rows.reshape((n,) + tuple(dst.shape[1:])).to(
+        dst.dtype)
+    return dst

@@ -1,8 +1,9 @@
 """End-to-end training driver (port of ``repro.launch.train``).
 
-Runs a training loop on synthetic data with LowDiff attached (or the
-bare dense step with ``--strategy none``), reports per-step times, and
-supports failure injection + recovery. Runs on the card unless
+Runs a training loop on synthetic data with LowDiff or LowDiff+ attached
+(or the bare dense step with ``--strategy none``), reports per-step
+times, and supports failure injection + recovery (LowDiff+ recovers
+from its host replica, as the reference does). Runs on the card unless
 ``--device cpu`` is given; with no card and no ``--device cpu`` it
 raises instead of running. The flags keep the reference's names and
 defaults; values that are not ported are refused by ``choices``.
@@ -13,6 +14,10 @@ Examples::
         --full-interval 4 --fail-at 7 --ckpt-dir build/ck
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch gpt2-l --reduced --steps 8 --full-interval 4 --fail-at 7
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch gpt2-l --reduced --strategy lowdiff_plus \\
+        --persist-mode incremental --dirty-granularity row \\
+        --diff-quant int4 --steps 8 --fail-at 6
 """
 from __future__ import annotations
 
@@ -75,7 +80,8 @@ def run(args):
         TRACER.enable(engine_cfg.trace_buffer)
     store = engine_cfg.build_store()
     strat = make_engine(engine_cfg, model, store=store)
-    mode = "lowdiff" if args.strategy == "lowdiff" else "dense"
+    mode = (args.strategy if args.strategy in ("lowdiff", "lowdiff_plus")
+            else "dense")
     state = init_state(model, args.seed, mode=mode, device=device)
     plain_step = make_train_step(model, mode=mode, lr=args.lr, rho=args.rho)
     stream = TokenStream(cfg, args.seq, args.batch, seed=args.seed,
@@ -104,8 +110,11 @@ def run(args):
             log.info(f"\n*** injected failure at step {t + 1} ***")
             assert strat is not None, "--fail-at needs a strategy"
             strat.flush()
-            del state
-            state, n = strat.recover()
+            if args.strategy == "lowdiff_plus":
+                state = strat.recover_software(state)
+            else:
+                del state
+                state, n = strat.recover()
             log.info(f"recovered at step {int(state['step'])}; resuming\n")
             stream.step = int(state["step"])
 
@@ -159,14 +168,51 @@ def build_parser() -> argparse.ArgumentParser:
                     help="checkpoint serialization (streamed frames)")
     ap.add_argument("--compressor", choices=("topk",), default="topk",
                     help="lowdiff gradient compression: blockwise top-k")
+    ap.add_argument("--persist-mode", choices=("full", "incremental"),
+                    default="full",
+                    help="lowdiff_plus persistence: 'full' rewrites the "
+                         "whole replica every persist; 'incremental' "
+                         "writes only the leaves that changed since the "
+                         "last persist as a patch chain on a base full, "
+                         "folded back in the background (requires "
+                         "--format frame)")
+    ap.add_argument("--persist-threshold", type=float, default=0.0,
+                    help="incremental persist filter: defer re-persisting "
+                         "a dirty leaf until its accumulated relative "
+                         "L-inf change exceeds this (0 = exact: persist "
+                         "every changed leaf)")
+    ap.add_argument("--dirty-granularity", choices=("leaf", "row"),
+                    default="leaf",
+                    help="incremental persist unit: 'leaf' re-persists "
+                         "whole changed arrays; 'row' tracks dirtiness "
+                         "per first-axis row and patches only the "
+                         "changed row ranges")
+    ap.add_argument("--diff-quant", choices=("off", "int8", "int4"),
+                    default="off",
+                    help="quantize row-span patch payloads on the wire "
+                         "(per-row-block absmax scales, error-feedback "
+                         "residuals; requires --persist-mode incremental "
+                         "--dirty-granularity row)")
+    ap.add_argument("--fold-interval", type=int, default=16,
+                    help="fold the patch chain into its base frame after "
+                         "this many incremental persists (0 = never)")
+    ap.add_argument("--fold-amplification", type=float, default=1.5,
+                    help="also fold when chain overlay bytes divided by "
+                         "base frame bytes reach this ratio (0 = "
+                         "disable the adaptive trigger; --fold-interval "
+                         "stays as the hard cap)")
     ap.add_argument("--replay-window", type=int, default=0,
-                    help="differentials staged per device-replay window "
-                         "(0 = one window)")
+                    help="differentials per replay window: bounds the "
+                         "compressed payloads staged on the device by "
+                         "parallel and device replay (0 = one window; "
+                         "parallel replay's dense scratch is bounded "
+                         "apart from it)")
     ap.add_argument("--replay-device", choices=("on", "off"), default="off",
                     help="recovery replay: 'on' stages the compressed "
-                         "payloads on the device per window, 'off' replays "
-                         "serially; both run the topk_apply kernel and "
-                         "give identical bits")
+                         "payloads on the device per window and replays "
+                         "them through the topk_apply kernel (bitwise "
+                         "equal to the trained state); 'off' runs the "
+                         "log-depth parallel replay")
     ap.add_argument("--snapshot-shards", type=int, default=4,
                     help="full snapshots land in this many shards, each "
                          "shard's device buffers released as it lands")

@@ -16,7 +16,8 @@ import torch
 from repro.compression.sparse import SparseGrad as JaxSparse
 from repro.kernels import ops as jops
 from repro_torch.compression.sparse import SparseGrad, k_for
-from repro_torch.kernels import build, fused_adam, ops, ref, replay, topk
+from repro_torch.kernels import (build, fused_adam, ops, ref, replay, span,
+                                 topk)
 
 HYPER = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
 
@@ -167,6 +168,15 @@ def test_cpu_tensors_take_the_plain_versions():
     blocks = [ref.to_blocks(t, 1024)[0] for t in (p, mu, nu)]
     for a, b in zip(out, ref.topk_apply_ref(v, i, *blocks, h, block=1024)):
         assert torch.equal(a, ref.unblock(b, (2500,)))
+    rows = x.reshape(25, 100)
+    q, s = span.span_pack(rows, 4)
+    rq, rs = ref.span_pack_ref(rows, 4)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert torch.equal(span.quant_span_decode(q, s, 100, 4),
+                       ref.span_decode_ref(q, s, 100, 4))
+    dst = torch.zeros(30, 100)
+    assert torch.equal(span.quant_span_apply(q, s, dst.clone(), 5, 4),
+                       ref.quant_span_apply_ref(q, s, dst, 5, bits=4))
     assert all(v == 0 for v in build.LAUNCHES.values())
 
 
