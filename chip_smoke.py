@@ -5,13 +5,16 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build the five CUDA sources from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, in parallel);
+1. build the CUDA sources from ``src/repro_torch/kernels/csrc`` (one
+   nvcc per source, all started together);
 2. hold K1-K4 against their plain torch versions on the card, on every
    leaf shape of full-width gpt2-l (K1/K2 exact, K3/K4 bitwise), plus
    edge cases (ragged tails, zero blocks, exact ties, k in
    {1, 11, 103}, k == 0, bfloat16), and time kernel, plain version and
-   the nearest single PyTorch call over one step's worth of leaves;
+   the nearest single PyTorch call over one step's worth of leaves; then
+   the same for K8-K13, the packed and quant8 compressors (bitwise, K8's
+   indices also equal to K1's), with their edge cases (ragged last
+   block, all-zero block, ties, half steps, bf16 params, k == 0);
 A. hold K5-K7 (the int8/int4 row-span codec) against their plain
    versions, bitwise, on every gpt2-l leaf as LowDiff+ quantizes it and
    on edge cases (cols 1 and odd, n 1 and 9, zero rows, bf16 leaves),
@@ -32,6 +35,12 @@ B. drive the LowDiff+ path: ``LowDiffPlus`` (incremental, row, int4
    bitwise, ``load_state_device`` (K7) == ``load_latest_state``
    bitwise, every recovered value within one quantization step of the
    replica, and K7 launched;
+C. phase 3 with ``--compressor packed`` (K8, K9, K10) at the depth of a
+   short run: f=4, b=2, resumed at step 3, so 4 steps write a full at
+   step 4 and 3 differentials; fail at step 7, recover by device replay
+   (bitwise) and by parallel replay (within tolerance);
+D. the same with ``--compressor quant8`` (K11, K12, K13; no error
+   feedback);
 5. print the ``kernels`` JSON line, the card's name and power limit,
    and the result line.
 
@@ -95,6 +104,14 @@ def abs_err(a, b) -> float:
     if a.numel() == 0:
         return 0.0
     return float((a.float() - b.float()).abs().max())
+
+
+def _bound(r) -> None:
+    """bound_ms / bound_by of a timing record from its bytes and ops."""
+    r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
+                              r["ops"] / FP32_FLOPS)
+    r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
+                     >= r["ops"] / FP32_FLOPS else "operations")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -307,15 +324,174 @@ def phase_parity(cfg, dev, reps: int = REPS):
     torch.cuda.empty_cache()
     for name, r in res.items():
         r["max_abs_err"] = err[name]
-        r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
-                                  r["ops"] / FP32_FLOPS)
-        r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
-                         >= r["ops"] / FP32_FLOPS else "operations")
+        _bound(r)
         log(f"[timing] {name}: kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"library_ms={r['library_ms']} max_abs_err={r['max_abs_err']} "
             f"(one step's leaves, "
             f"{r['bytes'] / 1e9:.3f} GB)")
+    return res
+
+
+# ------------------------------------------------- phase 2, K8-K13
+def _compressor_checks(err, x, k, p, mu, nu, hyper):
+    """K8-K13 on one input ``x`` (any shape) against their plain
+    versions, bitwise; K8's indices also against K1's. The apply kernels
+    update state (p, mu, nu), p in its own dtype. Raises ``err``'s
+    entries to the largest |kernel - plain|; returns the K8 and K11
+    payloads."""
+    import torch
+    from repro_torch.kernels import pack, quant8, ref, replay, topk
+    what = f"{tuple(x.shape)} {x.dtype} k={k} p {p.dtype}"
+    xb = ref.to_blocks(x, 1024)[0]
+    blocks = [ref.to_blocks(t, 1024)[0] for t in (p, mu, nu)]
+
+    def same(name, got, want):
+        err[name] = max([err[name]] + [abs_err(a, b)
+                                       for a, b in zip(got, want)])
+        if not all(bits_equal(a, b) for a, b in zip(got, want)):
+            fail(f"{name} != plain version on {what}")
+
+    q, i, s = pack.pack_select(x, k)
+    same("pack_select", (q, i, s), ref.pack_select_ref(xb, k))
+    if not torch.equal(i, topk.topk_select(x, k)[1]):
+        fail(f"K8 indices != K1 indices on {what}")
+    n = x.numel()
+    same("pack_scatter", (pack.pack_scatter(q, i, s, n),),
+         (ref.pack_scatter_ref(q, i, s, 1024).reshape(-1)[:n],))
+    for kk in {k, 0}:                         # k == 0: g == 0 exactly
+        qq, ii = q[:, :kk].contiguous(), i[:, :kk].contiguous()
+        same("packed_apply", replay.packed_apply(qq, ii, s, p, mu, nu, hyper),
+             [ref.unblock(t, p.shape) for t in ref.packed_apply_ref(
+                 qq, ii, s, *blocks, hyper, block=1024)])
+    q8, s8 = quant8.quantize(x)
+    rq, rs = ref.quantize_ref(xb)
+    same("quantize", (q8, s8), (rq, rs.reshape(-1)))
+    same("dequantize", (quant8.dequantize(q8, s8, n),),
+         (ref.dequantize_ref(q8, s8).reshape(-1)[:n],))
+    same("quant_apply", replay.quant_apply(q8, s8, p, mu, nu, hyper),
+         [ref.unblock(t, p.shape) for t in ref.quant_apply_ref(
+             q8, s8, *blocks, hyper)])
+    return (q, i, s), (q8, s8)
+
+
+def phase_compressors(cfg, dev, reps: int = REPS):
+    """Phase 2 for K8-K13 (the packed and quant8 compressors): bitwise
+    against the plain versions on edge cases and on every full-width
+    gpt2-l leaf as 1024-blocks, then timed over one step's worth of
+    leaves (k = 11 for K8-K10)."""
+    import torch
+    from repro_torch.compression.sparse import k_for
+    from repro_torch.kernels import pack, quant8, ref, replay
+    from repro_torch.kernels.ops import adam_hyper_traced
+    names = ("pack_select", "pack_scatter", "packed_apply", "quantize",
+             "dequantize", "quant_apply")
+    err = {k: 0.0 for k in names}
+    hyper = adam_hyper_traced(1e-3, 0.9, 0.999, 1e-8,
+                              torch.tensor(3, dtype=torch.int32, device=dev))
+    g = torch.Generator(device=dev).manual_seed(13)
+    # edge cases: ties and an all-zero block, a ragged last block, values
+    # whose x / scale lands on the half steps, bf16 inputs and params
+    ties = torch.randint(-3, 4, (5 * 1024 + 300,), generator=g,
+                         device=dev).float()
+    ties[1024:2048] = 0.0
+    half = torch.randn(3 * 1024 + 7, generator=g, device=dev)
+    half[:1024] = torch.arange(1024, device=dev) % 254 - 126.5
+    half[0] = 127.0
+    cases = [ties, half, torch.randn(2500, generator=g, device=dev),
+             torch.randn(3000, generator=g, device=dev).to(torch.bfloat16)]
+    n_checks = 0
+    for x in cases:
+        for k in (1, 11, 103):
+            for pdt in (torch.float32, torch.bfloat16):
+                p = torch.randn(x.shape, generator=g, device=dev).to(pdt)
+                mu = torch.randn(x.shape, generator=g, device=dev) * 0.1
+                nu = torch.rand(x.shape, generator=g, device=dev) * 0.01
+                _compressor_checks(err, x, k, p, mu, nu, hyper)
+                n_checks += 8
+    zq, _, zs = pack.pack_select(ties, 11)
+    z8, zs8 = quant8.quantize(ties)
+    if not (float(zs[1, 0]) == float(zs8[1]) == float(torch.tensor(1e-12))
+            and not zq[1].any() and not z8[1].any()):
+        fail("an all-zero block must give scale 1e-12 and codes 0")
+    log(f"[parity] K8-K13 edge cases: {n_checks} kernel/plain comparisons "
+        f"bitwise equal")
+
+    shapes = _leaf_shapes(cfg)
+    n_all = sum(math.prod(s) for s in shapes)
+    nb_all = sum(-(-math.prod(s) // 1024) for s in shapes)
+    k = k_for(0.01)
+    xs = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    mus = [torch.randn(s, generator=g, device=dev) * 0.1 for s in shapes]
+    nus = [torch.rand(s, generator=g, device=dev) * 0.01 for s in shapes]
+    outs = [_compressor_checks(err, x, k, x, mu, nu, hyper)
+            for x, mu, nu in zip(xs, mus, nus)]
+    torch.cuda.empty_cache()
+    log("[parity] K8-K13: bitwise equal to the plain versions on every "
+        "leaf (K8 indices == K1 indices)")
+    packs = [o[0] for o in outs]
+    q8s = [o[1] for o in outs]
+    ns = [x.numel() for x in xs]
+    state = list(zip(xs, mus, nus))
+    slow = max(1, reps // 5)
+    res = {}
+    res["pack_select"] = dict(
+        ms=timed(lambda: [pack.pack_select(x, k) for x in xs], reps),
+        plain_ms=timed(lambda: [ref.pack_select_ref(
+            ref.to_blocks(x, 1024)[0], k) for x in xs], slow),
+        library_ms=None, bytes=4 * n_all + (5 * k + 4) * nb_all,
+        ops=2 * k * 1024 * nb_all)
+    res["pack_scatter"] = dict(
+        ms=timed(lambda: [pack.pack_scatter(q, i, s, n)
+                          for (q, i, s), n in zip(packs, ns)], reps),
+        plain_ms=timed(lambda: [ref.pack_scatter_ref(q, i, s, 1024)
+                                for q, i, s in packs], slow),
+        library_ms=None, bytes=4 * n_all + (5 * k + 4) * nb_all,
+        ops=2 * k * nb_all)
+
+    def plain_apply(fn, payloads):
+        for pay, (p, mu, nu) in zip(payloads, state):
+            fn(*pay, *(ref.to_blocks(t, 1024)[0] for t in (p, mu, nu)))
+    res["packed_apply"] = dict(
+        ms=timed(lambda: [replay.packed_apply(*pay, *st, hyper)
+                          for pay, st in zip(packs, state)], reps),
+        plain_ms=timed(lambda: plain_apply(
+            lambda q, i, s, p, mu, nu: ref.packed_apply_ref(
+                q, i, s, p, mu, nu, hyper, block=1024), packs), slow),
+        library_ms=None, bytes=24 * n_all + (5 * k + 4) * nb_all,
+        ops=13 * n_all + 2 * k * nb_all)
+    res["quantize"] = dict(
+        ms=timed(lambda: [quant8.quantize(x) for x in xs], reps),
+        plain_ms=timed(lambda: [ref.quantize_ref(ref.to_blocks(x, 1024)[0])
+                                for x in xs], slow),
+        library_ms=None, bytes=4 * n_all + (1024 + 4) * nb_all,
+        ops=5 * 1024 * nb_all)
+    s2 = [s.reshape(-1, 1) for _, s in q8s]
+    res["dequantize"] = dict(
+        ms=timed(lambda: [quant8.dequantize(q, s, n)
+                          for (q, s), n in zip(q8s, ns)], reps),
+        plain_ms=timed(lambda: [ref.dequantize_ref(q, s) for q, s in q8s],
+                       slow),
+        library_ms=timed(lambda: [torch.mul(q, s) for (q, _), s
+                                  in zip(q8s, s2)], reps),
+        bytes=4 * n_all + (1024 + 4) * nb_all, ops=n_all)
+    res["quant_apply"] = dict(
+        ms=timed(lambda: [replay.quant_apply(*pay, *st, hyper)
+                          for pay, st in zip(q8s, state)], reps),
+        plain_ms=timed(lambda: plain_apply(
+            lambda q, s, p, mu, nu: ref.quant_apply_ref(
+                q, s, p, mu, nu, hyper), q8s), slow),
+        library_ms=None, bytes=24 * n_all + (1024 + 4) * nb_all,
+        ops=14 * n_all)
+    del xs, mus, nus, outs, packs, q8s, state, s2
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        r["max_abs_err"] = err[name]
+        _bound(r)
+        log(f"[timing] {name}: kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"library_ms={r['library_ms']} max_abs_err={r['max_abs_err']} "
+            f"(one step's leaves, {r['bytes'] / 1e9:.3f} GB)")
     return res
 
 
@@ -504,10 +680,7 @@ def phase_span(cfg, dev, reps: int = REPS):
     for name, r in res.items():
         r["max_abs_err"] = err[name]
         r["parity_launches"] = parity_launches[name]
-        r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
-                                  r["ops"] / FP32_FLOPS)
-        r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
-                         >= r["ops"] / FP32_FLOPS else "operations")
+        _bound(r)
         log(f"[timing] {name}: kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"library_ms=None max_abs_err={r['max_abs_err']} "
@@ -516,11 +689,14 @@ def phase_span(cfg, dev, reps: int = REPS):
 
 
 # ---------------------------------------------------------------- phase 3
-def _small_reference_check(dev):
+def _small_reference_check(dev, compressor: str = "topk"):
     """Reduced gpt2-l: one lowdiff step on the card (kernels) against the
-    same step on the CPU (plain versions), from the same params/batch."""
+    same step on the CPU (plain versions), from the same params/batch.
+    The gradients round differently on the two devices, so a near-tie may
+    flip a top-k pick or an int8 code: >= 99.9% must agree."""
     import torch
     from repro_torch import tree_leaves
+    from repro_torch.compression.sparse import is_compressed
     from repro_torch.configs import get_config
     from repro_torch.core.steps import init_state, make_train_step
     from repro_torch.data.synthetic import make_batch
@@ -530,7 +706,7 @@ def _small_reference_check(dev):
     cpu = init_state(model, 0, device="cpu")
     gpu = init_state(model, 0, device=dev, params={
         k: v for k, v in _to(cpu["params"], dev).items()})
-    step = make_train_step(model)
+    step = make_train_step(model, compressor=compressor)
     b = make_batch(cfg, 64, 2, step=0)
     s_cpu, m_cpu, cg_cpu = step(cpu, b)
     s_gpu, m_gpu, cg_gpu = step(gpu, {k: v.to(dev) for k, v in b.items()})
@@ -538,15 +714,19 @@ def _small_reference_check(dev):
     if not (math.isfinite(lg) and abs(lc - lg) <= 1e-4 * abs(lc)):
         fail(f"reduced-step loss card {lg} vs cpu {lc}")
     agree = tot = 0
-    for a, b_ in zip(tree_leaves(cg_cpu), tree_leaves(cg_gpu)):
-        if a.dtype == torch.int32:
-            rows = (a == b_.cpu()).all(dim=1)
-            agree += int(rows.sum())
-            tot += rows.numel()
+    what = "int8 codes" if compressor == "quant8" else "top-k rows"
+    for a, b_ in zip(tree_leaves(cg_cpu, is_leaf=is_compressed),
+                     tree_leaves(cg_gpu, is_leaf=is_compressed)):
+        if compressor == "quant8":
+            same = a.q == b_.q.cpu()
+        else:
+            same = (a.indices == b_.indices.cpu()).all(dim=1)
+        agree += int(same.sum())
+        tot += same.numel()
     if agree < 0.999 * tot:
-        fail(f"reduced-step top-k rows agree {agree}/{tot}")
-    log(f"[reference] reduced gpt2-l step card vs cpu: loss {lg:.6f} vs "
-        f"{lc:.6f}, top-k rows agree {agree}/{tot}")
+        fail(f"reduced {compressor} step: {what} agree {agree}/{tot}")
+    log(f"[reference] reduced gpt2-l {compressor} step card vs cpu: loss "
+        f"{lg:.6f} vs {lc:.6f}, {what} agree {agree}/{tot}")
 
 
 def _to(tree, dev):
@@ -574,7 +754,20 @@ def _replay_close(got, want) -> float:
     return worst
 
 
-def phase_main(cfg, dev, ckdir: str, steps: int = 20, start: int = 19):
+#: kernels each compressor's training and recovery must launch
+PATH_KERNELS = {"topk": ("topk_select", "topk_scatter", "topk_apply"),
+                "packed": ("pack_select", "pack_scatter", "packed_apply"),
+                "quant8": ("quantize", "dequantize", "quant_apply")}
+
+
+def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
+               steps: int = 20, start: int = 19, full_interval: int = 20):
+    """LowDiff with ``compressor`` on full-width gpt2-l, resumed at step
+    ``start``: ``steps`` steps write a full at the first multiple of
+    ``full_interval`` and the differentials after it; then fail, recover
+    by device replay (bitwise) and by parallel replay (within the
+    reassociation tolerance), and require the compressor's kernels to
+    have launched. Returns the launch counts of this run."""
     import torch
     from repro_torch import tree_leaves
     from repro_torch.checkpoint.io import COPY_METER
@@ -586,19 +779,22 @@ def phase_main(cfg, dev, ckdir: str, steps: int = 20, start: int = 19):
     from repro_torch.kernels import build
     from repro_torch.models.registry import build_model
     from repro_torch.obs.trace import TRACER
-    _small_reference_check(dev)
+    tag = "[main]" if compressor == "topk" else f"[{compressor}]"
+    _small_reference_check(dev, compressor)
     shutil.rmtree(ckdir, ignore_errors=True)
     model = build_model(cfg)
     fail_at = start + steps
-    log(f"[main] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-        f"{model.n_params()} params; LowDiff topk rho=0.01 + EF, f=20, b=2, "
-        f"batch 4 x seq 64, steps {start + 1}..{fail_at}, device replay "
-        f"then parallel replay")
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{model.n_params()} params; LowDiff {compressor} rho=0.01"
+        f"{'' if compressor == 'quant8' else ' + EF'}, f={full_interval}, "
+        f"b=2, batch 4 x seq 64, steps {start + 1}..{fail_at}, device "
+        f"replay then parallel replay")
     TRACER.clear()
     TRACER.enable()
     store = CheckpointStore(ckdir)
-    strat = LowDiff(model, store, rho=0.01, lr=1e-3, full_interval=20,
-                    batch_size=2, replay_device=True, device=dev,
+    strat = LowDiff(model, store, rho=0.01, lr=1e-3,
+                    full_interval=full_interval, batch_size=2,
+                    compressor=compressor, replay_device=True, device=dev,
                     flush_timeout=3600.0)
     state = init_state(model, 0, device=dev)
     state["step"] = torch.tensor(start, dtype=torch.int32, device=dev)
@@ -622,9 +818,9 @@ def phase_main(cfg, dev, ckdir: str, steps: int = 20, start: int = 19):
         losses.append(float(metrics["loss"]))
     if not all(math.isfinite(l) for l in losses):
         fail(f"non-finite loss {losses}")
-    log(f"[main] step_ms={[round(s, 3) for s in step_ms]} "
+    log(f"{tag} step_ms={[round(s, 3) for s in step_ms]} "
         f"losses={[round(l, 5) for l in losses]}")
-    log(f"[main] differential bytes per step: {diff_bytes[-1]} "
+    log(f"{tag} differential bytes per step: {diff_bytes[-1]} "
         f"(dense f32 gradient {4 * model.n_params()})")
     trained = [t.clone() for t in tree_leaves(state["params"])
                + tree_leaves(state["opt"])]
@@ -647,14 +843,14 @@ def phase_main(cfg, dev, ckdir: str, steps: int = 20, start: int = 19):
     if len(recovered) != len(trained) or not all(
             bits_equal(a, b) for a, b in zip(trained, recovered)):
         fail("recovered params/opt differ from the trained state")
-    log(f"[main] recovered at step {int(state['step'])}; {applied} "
+    log(f"{tag} recovered at step {int(state['step'])}; {applied} "
         f"differentials replayed; params+opt bitwise equal to the trained "
         f"state ({len(trained)} leaves)")
     spans = {}
     for name, _, _, _, t0_, t1_, _ in TRACER.events():
         spans[name] = spans.get(name, 0.0) + (t1_ - t0_) * 1e3
     TRACER.disable()
-    log(f"[main] snapshot_ms(d2h, all snapshots)="
+    log(f"{tag} snapshot_ms(d2h, all snapshots)="
         f"{spans.get('snapshot.d2h', 0.0):.1f} "
         f"persist_full_ms={spans.get('store.save_full', 0.0):.1f} "
         f"persist_batch_ms={spans.get('store.save_batch', 0.0):.1f} "
@@ -685,17 +881,17 @@ def phase_main(cfg, dev, ckdir: str, steps: int = 20, start: int = 19):
     if not ratio <= 1.0:
         fail(f"parallel recovery differs from the trained state beyond "
              f"the reassociation tolerance (ratio {ratio})")
-    log(f"[main] parallel recovery (the default) of {applied} "
+    log(f"{tag} parallel recovery (the default) of {applied} "
         f"differentials: recovery_ms={par_ms:.1f} peak device memory "
         f"above the trained copy {par_peak} B (device replay: "
         f"recovery_ms={rec_ms:.1f}, peak {rec_peak} B); within the "
         f"reassociation tolerance of the trained state (largest ratio "
         f"{ratio:.4f})")
     launches = dict(build.LAUNCHES)
-    log(f"[main] launches: {launches}")
-    for k in ("topk_select", "topk_scatter", "topk_apply"):
+    log(f"{tag} launches: {launches}")
+    for k in PATH_KERNELS[compressor]:
         if launches[k] <= 0:
-            fail(f"main path did not launch {k}")
+            fail(f"the {compressor} path did not launch {k}")
     strat.close()
     del state, trained, strat
     shutil.rmtree(ckdir, ignore_errors=True)
@@ -958,6 +1154,18 @@ KERNELS = [
      "src/repro/kernels/replay.py:185"),
     ("quant_span_apply", "src/repro_torch/kernels/csrc/span.cu",
      "src/repro/kernels/replay.py:205"),
+    ("pack_select", "src/repro_torch/kernels/csrc/topk.cu",
+     "src/repro/kernels/pack.py:31"),
+    ("pack_scatter", "src/repro_torch/kernels/csrc/topk.cu",
+     "src/repro/kernels/pack.py:130"),
+    ("packed_apply", "src/repro_torch/kernels/csrc/replay.cu",
+     "src/repro/kernels/replay.py:76"),
+    ("quantize", "src/repro_torch/kernels/csrc/quant8.cu",
+     "src/repro/kernels/quant8.py:16"),
+    ("dequantize", "src/repro_torch/kernels/csrc/quant8.cu",
+     "src/repro/kernels/quant8.py:42"),
+    ("quant_apply", "src/repro_torch/kernels/csrc/replay.cu",
+     "src/repro/kernels/replay.py:85"),
 ]
 
 
@@ -993,6 +1201,7 @@ def main() -> int:
 
     phase_build()
     res = phase_parity(cfg, dev)
+    res.update(phase_compressors(cfg, dev))
     log(f"[time] build + phase 2: {time.perf_counter() - t_all:.1f} s")
     build.reset_launches()
     res.update(phase_span(cfg, dev))
@@ -1005,14 +1214,19 @@ def main() -> int:
                      for k in ("span_pack", "quant_span_decode")})
     if args.only == "all":
         launches.update({k: v for k, v in phase_main(
-            cfg, dev, args.ckpt_dir).items()
-            if k in ("topk_select", "topk_scatter", "topk_apply")})
+            cfg, dev, args.ckpt_dir).items() if k in PATH_KERNELS["topk"]})
         launches["adam_tile_update"] = phase_dense(cfg, dev)[
             "adam_tile_update"]
         log(f"[time] + phases 3, 4: {time.perf_counter() - t_all:.1f} s")
         launches["quant_span_apply"] = phase_lowdiff_plus(
             cfg, dev, args.ckpt_dir)["quant_span_apply"]
         log(f"[time] + phase B: {time.perf_counter() - t_all:.1f} s")
+        _release_pinned()
+        for phase, comp in (("C", "packed"), ("D", "quant8")):
+            launches.update({k: v for k, v in phase_main(
+                cfg, dev, args.ckpt_dir, comp, steps=4, start=3,
+                full_interval=4).items() if k in PATH_KERNELS[comp]})
+            log(f"[time] + phase {phase}: {time.perf_counter() - t_all:.1f} s")
     if args.profile:
         phase_profile(cfg, dev)
     kernels = []

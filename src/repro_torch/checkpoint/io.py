@@ -13,10 +13,13 @@ bytes, and each package reads the other's frames.
 The codec covers the containers of the lowdiff and lowdiff_plus paths:
 dict, list, tuple, NamedTuple (keyed by class name — ``AdamState``,
 ``RowUpdate``), ``SparseGrad`` (indices written as int32 under
-``"__t": "sparse"``, as the reference writes them), ``QuantSpan``
-(``"__t": "qspan"``, wire bytes verbatim), torch tensors, numpy arrays
-and python scalars. bfloat16 leaves are stored as uint16 views
-referenced by negative index and come back as torch bfloat16 tensors.
+``"__t": "sparse"``, as the reference writes them), ``QuantGrad``
+(``"__t": "quant"``, scale (nb,)), ``PackedDiff`` (``"__t": "packed"``,
+indices narrowed to int16 on the wire and widened back to int32 on
+load), ``QuantSpan`` (``"__t": "qspan"``, wire bytes verbatim), torch
+tensors, numpy arrays and python scalars. bfloat16 leaves are stored as
+uint16 views referenced by negative index and come back as torch
+bfloat16 tensors.
 
 Writes go through :func:`atomic_write` (temp file + fsync + rename +
 parent-directory fsync), so readers never observe a torn checkpoint.
@@ -36,6 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.patchset import PatchSet, RowUpdate
+from repro_torch.compression.packed import PackedDiff
+from repro_torch.compression.quant import QuantGrad
 from repro_torch.compression.quant_span import QuantSpan
 from repro_torch.compression.sparse import SparseGrad
 from repro_torch.optim.adam import AdamState
@@ -155,6 +160,20 @@ def _pack(obj, arrays: List[np.ndarray]):
                 "block": int(obj.block),
                 "values": _arr(obj.values, arrays),
                 "indices": _arr(obj.indices, arrays)}
+    if isinstance(obj, QuantGrad):
+        return {"__t": "quant", "shape": [int(d) for d in obj.shape],
+                "block": int(obj.block), "q": _arr(obj.q, arrays),
+                "scale": _arr(obj.scale, arrays)}
+    if isinstance(obj, PackedDiff):
+        # block-local indices (< block <= 32768) narrow losslessly to
+        # int16 on the wire, as the reference writes them
+        idx = to_numpy(obj.indices)
+        if obj.block <= np.iinfo(np.int16).max + 1:
+            idx = idx.astype(np.int16)
+        return {"__t": "packed", "shape": [int(d) for d in obj.shape],
+                "block": int(obj.block), "q": _arr(obj.q, arrays),
+                "indices": _arr(idx, arrays),
+                "scale": _arr(obj.scale, arrays)}
     if isinstance(obj, QuantSpan):
         return {"__t": "qspan", "shape": list(obj.shape),
                 "bits": int(obj.bits), "dtype": str(obj.dtype),
@@ -206,6 +225,15 @@ def _unpack(node, arrays):
     if t == "sparse":
         return SparseGrad(_get(node["values"], arrays),
                           _get(node["indices"], arrays),
+                          tuple(node["shape"]), node["block"])
+    if t == "quant":
+        return QuantGrad(_get(node["q"], arrays), _get(node["scale"], arrays),
+                         tuple(node["shape"]), node["block"])
+    if t == "packed":
+        return PackedDiff(_get(node["q"], arrays),
+                          np.asarray(_get(node["indices"], arrays),
+                                     np.int32),
+                          _get(node["scale"], arrays),
                           tuple(node["shape"]), node["block"])
     if t == "qspan":
         return QuantSpan(starts=tuple(int(s) for s in node["starts"]),

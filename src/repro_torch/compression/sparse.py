@@ -35,8 +35,8 @@ class SparseGrad:
     @property
     def nbytes(self) -> int:
         # indices fit in int16 on disk (block-local < 1024)
-        return int(_numel(self.values) * _itemsize(self.values)
-                   + _numel(self.indices) * 2)
+        return (_nbytes(self.values, _itemsize(self.values))
+                + _nbytes(self.indices, 2))
 
     def dense(self):
         return topk_decompress(self)
@@ -47,8 +47,10 @@ register_node(SparseGrad,
               lambda s, kids: SparseGrad(kids[0], kids[1], s.shape, s.block))
 
 
-def _numel(a) -> int:
-    return int(a.numel()) if hasattr(a, "numel") else int(a.size)
+def _nbytes(a, itemsize: int) -> int:
+    """Bytes of ``a`` (tensor or numpy) at ``itemsize`` per element."""
+    n = int(a.numel()) if hasattr(a, "numel") else int(a.size)
+    return n * itemsize
 
 
 def _itemsize(a) -> int:
@@ -75,21 +77,24 @@ def topk_decompress(sg: SparseGrad):
     return ops.topk_decompress(sg)
 
 
-def is_sparse(x) -> bool:
-    return isinstance(x, SparseGrad)
+def is_compressed(x) -> bool:
+    """A wire container of any compressor: top-k (``SparseGrad``),
+    quant8 (``QuantGrad``) or packed (``PackedDiff``)."""
+    from repro_torch.compression.packed import PackedDiff
+    from repro_torch.compression.quant import QuantGrad
+    return isinstance(x, (SparseGrad, QuantGrad, PackedDiff))
 
 
 # ------------------------- tree-level API --------------------------------
 
-def compress_tree(grads, rho: float):
-    return tree_map(lambda g: topk_compress(g, rho), grads)
-
-
 def decompress_tree(cg):
-    return tree_map(topk_decompress, cg, is_leaf=is_sparse)
+    """Dense gradients of a compressed tree (each container's decode)."""
+    return tree_map(lambda l: l.dense() if is_compressed(l) else l, cg,
+                    is_leaf=is_compressed)
 
 
 def tree_nbytes(cg) -> int:
-    return sum(l.nbytes for l in tree_leaves(cg, is_leaf=is_sparse)
-               if isinstance(l, SparseGrad))
+    """Wire bytes of a compressed tree (indices at 2 B, as on disk)."""
+    return sum(l.nbytes for l in tree_leaves(cg, is_leaf=is_compressed)
+               if is_compressed(l))
 

@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional
 
 from repro_torch.checkpoint.backends import BACKENDS, make_backend
 from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.core.steps import COMPRESSORS
 
 STRATEGIES = ("none", "lowdiff", "lowdiff_plus")
 
@@ -94,9 +95,10 @@ class EngineConfig:
             raise ConfigError(
                 f"diff_quant: {self.diff_quant!r} is not one of "
                 f"('off', 'int8', 'int4')")
-        if self.compressor != "topk":
+        if self.compressor not in COMPRESSORS:
             raise ConfigError(
-                f"compressor: {self.compressor!r} is not ported ('topk')")
+                f"compressor: {self.compressor!r} is not one of "
+                f"{COMPRESSORS}")
         if self.backend not in BACKENDS:
             raise ConfigError(
                 f"backend: {self.backend!r} is not one of {BACKENDS}")

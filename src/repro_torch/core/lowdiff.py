@@ -14,8 +14,10 @@ re-solving Eq. (10) from observed merge times.
 Recovery: load the latest full checkpoint, then replay the differential
 chain: by default as a log-depth parallel scan (``replay_parallel``,
 equal to serial replay up to float reassociation), or serially / device-
-staged (``replay_device``) through the same ``topk_apply`` kernel the
-step used, which recovers the trained state bit for bit.
+staged (``replay_device``) through the same fused apply kernel the step
+used (K4, K10 or K13 by compressor), which recovers the trained state
+bit for bit. As in the reference, the quant8 compressor runs without
+error feedback.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch import resolve_device, tree_leaves
+from repro_torch import resolve_device
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core import recovery as rec
 from repro_torch.core.config_opt import (OnlineTuner, SystemParams,
@@ -40,18 +42,6 @@ from repro_torch.core.snapshot import (PendingSnapshot, SnapshotArena,
 from repro_torch.core.steps import make_train_step
 from repro_torch.obs.timeline import TIMELINE
 from repro_torch.obs.trace import trace_span
-
-
-def _payload_nbytes(payloads) -> int:
-    """Host bytes of a batch of compressed differentials."""
-    total = 0
-    for p in payloads:
-        for leaf in tree_leaves(p):
-            if isinstance(leaf, torch.Tensor):
-                total += leaf.numel() * leaf.element_size()
-            else:
-                total += int(getattr(leaf, "nbytes", 0) or 0)
-    return total
 
 
 class LowDiff:
@@ -73,6 +63,8 @@ class LowDiff:
         self.model, self.store = model, store
         self.device = resolve_device(device)
         self.rho, self.lr = rho, lr
+        if compressor == "quant8":
+            error_feedback = False
         self.batch_mode = batch_mode
         self.parallel_recovery = parallel_recovery
         self.replay_window = replay_window
@@ -146,7 +138,8 @@ class LowDiff:
                                   [p for _, p in buf], mode=self.batch_mode)
         merge_t = (time.perf_counter() - t0) / max(len(buf), 1)
         self.tuner.observe_merge_time(merge_t)
-        batch_bytes = _payload_nbytes([p for _, p in buf])
+        # host bytes of the batch's arrays, whatever the container
+        batch_bytes = sum(rec._payload_nbytes(p) for _, p in buf)
         self._apply_tuning(merge_time_s=merge_t, batch_bytes=batch_bytes)
 
     def _apply_tuning(self, **inputs):

@@ -2,11 +2,12 @@
 overlay of LowDiff+, port of ``repro.core.recovery``.
 
 Serial and device replay apply each differential through Adam in order
-— ``M_{j+1} = M_j + Adam(G_j)`` — with ``topk_apply`` (K4) scattering
-each leaf's wire payload straight into the update, the kernel and hyper
-row the training step itself used. So a recovered state equals the
-trained one bit for bit, and the two replays equal each other bit for
-bit.
+— ``M_{j+1} = M_j + Adam(G_j)`` — with the fused decode-and-apply kernel
+of each leaf's wire form (``topk_apply`` K4, ``packed_apply`` K10 or
+``quant_apply`` K13) decoding the payload straight into the update: the
+kernel and hyper row the training step itself used. So a recovered
+state equals the trained one bit for bit, and the two replays equal
+each other bit for bit.
 
 * :func:`replay_serial` uploads one differential at a time.
 * :func:`replay_device` stages a window of compressed payloads on the
@@ -32,8 +33,10 @@ import torch
 
 from repro_torch import resolve_device, tree_leaves, tree_map
 from repro_torch.checkpoint.patchset import RowUpdate
+from repro_torch.compression.packed import PackedDiff
+from repro_torch.compression.quant import QuantGrad
 from repro_torch.compression.quant_span import QuantSpan
-from repro_torch.compression.sparse import SparseGrad, is_sparse
+from repro_torch.compression.sparse import SparseGrad, is_compressed
 from repro_torch.kernels import ops
 from repro_torch.models.param import to_tensor
 from repro_torch.optim.adam import AdamState
@@ -79,12 +82,14 @@ def contiguous_prefix(start: int, diffs: List[Tuple[int, Any]],
 
 
 def to_device(tree, device):
-    """Host (or device) tree -> tensors on ``device``; SparseGrad
-    payloads keep their container."""
+    """Host (or device) tree -> tensors on ``device``; compressed
+    payloads (top-k, packed, quant8) keep their container."""
     return tree_map(lambda a: to_tensor(a, device=device), tree)
 
 
 def _payload_nbytes(payload) -> int:
+    """Host bytes of a payload's arrays (compressed containers are tree
+    nodes, so their q / indices / scale arrays count as they are)."""
     return sum(int(getattr(l, "nbytes", 0) or 0)
                for l in tree_leaves(payload))
 
@@ -131,7 +136,7 @@ def replay_serial(params, opt: AdamState, diffs: List[Tuple[int, Any]], *,
     for _, payload in diffs:
         count = count + 1
         hyper = ops.adam_hyper_traced(lr, b1, b2, eps, count)
-        g_l = tree_leaves(to_device(payload, dev), is_leaf=is_sparse)
+        g_l = tree_leaves(to_device(payload, dev), is_leaf=is_compressed)
         COPY_METER.add_h2d(_payload_nbytes(payload))
         p_l, mu_l, nu_l = _fused_step(p_l, mu_l, nu_l, hyper, g_l)
     return _finish(params, opt, p_l, mu_l, nu_l, count)
@@ -144,24 +149,38 @@ def replay_serial(params, opt: AdamState, diffs: List[Tuple[int, Any]], *,
 CORRUPT_PAYLOAD = (ValueError, TypeError)
 
 
+def _wire_shapes(leaf, nb: int):
+    """{field: (its shape, the shape the leaf's dense shape needs)} of a
+    compressed leaf; k is whatever the payload carries."""
+    if isinstance(leaf, SparseGrad):
+        k = tuple(leaf.values.shape[1:2])
+        return {"values": (leaf.values.shape, (nb,) + k),
+                "indices": (leaf.indices.shape, (nb,) + k)}
+    if isinstance(leaf, PackedDiff):
+        k = tuple(leaf.q.shape[1:2])
+        return {"q": (leaf.q.shape, (nb,) + k),
+                "indices": (leaf.indices.shape, (nb,) + k),
+                "scale": (leaf.scale.shape, (nb, 1))}
+    return {"q": (leaf.q.shape, (nb, leaf.block)),
+            "scale": (leaf.scale.shape, (nb,))}
+
+
 def _check_wire(payload) -> None:
-    """The block-row count of each compressed leaf must match the dense
-    shape it claims to decode to."""
-    for leaf in tree_leaves(payload, is_leaf=is_sparse):
-        if not isinstance(leaf, SparseGrad):
+    """The block rows and the index, code and scale shapes of each
+    compressed leaf must match the dense shape it claims to decode to."""
+    for leaf in tree_leaves(payload, is_leaf=is_compressed):
+        if not is_compressed(leaf):
             continue
         n = 1
         for d in leaf.shape:
             n *= int(d)
         nb = -(-n // leaf.block)
-        if tuple(leaf.indices.shape) != tuple(leaf.values.shape):
-            raise ValueError(
-                f"corrupt differential: indices {tuple(leaf.indices.shape)} "
-                f"for values {tuple(leaf.values.shape)}")
-        if leaf.values.shape[0] != nb:
-            raise ValueError(
-                f"corrupt differential: {leaf.values.shape[0]} block rows "
-                f"for shape {leaf.shape} (expected {nb})")
+        for field, (got, want) in _wire_shapes(leaf, nb).items():
+            if tuple(got) != want:
+                raise ValueError(
+                    f"corrupt differential: {type(leaf).__name__}.{field} "
+                    f"{tuple(got)} for shape {tuple(leaf.shape)} (expected "
+                    f"{want})")
 
 
 def _stage_window(diffs: List[Tuple[int, Any]], dev):
@@ -176,7 +195,7 @@ def _stage_window(diffs: List[Tuple[int, Any]], dev):
             try:
                 _check_wire(payload)
                 staged.append(tree_leaves(to_device(payload, dev),
-                                          is_leaf=is_sparse))
+                                          is_leaf=is_compressed))
                 nbytes += _payload_nbytes(payload)
             except CORRUPT_PAYLOAD as e:
                 err = e
@@ -191,9 +210,10 @@ def replay_device(params, opt: AdamState, diffs: List[Tuple[int, Any]], *,
                   window: Optional[int] = None, device=None):
     """Device-resident replay: each window's compressed payloads are
     staged on the device, then applied differential by differential,
-    leaf by leaf, with K4. Bit-identical to :func:`replay_serial`. A
-    corrupt payload (one that raises :data:`CORRUPT_PAYLOAD` when staged
-    or applied) cuts the chain there; a failed build or launch raises.
+    leaf by leaf, with the kernel of its wire form (K4, K10 or K13).
+    Bit-identical to :func:`replay_serial`. A corrupt payload (one that
+    raises :data:`CORRUPT_PAYLOAD` when staged or applied) cuts the
+    chain there; a failed build or launch raises.
     Returns (params, opt, applied)."""
     if not diffs:
         return params, opt, 0
@@ -253,13 +273,21 @@ def _chunk_elems(n: int, block: int) -> int:
 
 def _dense_chunk(leaf, lo: int, hi: int) -> torch.Tensor:
     """Elements [lo, hi) of a differential's flattened leaf as dense f32.
-    A top-k leaf decodes only the blocks that cover them (``lo`` is a
-    multiple of its block)."""
-    if isinstance(leaf, SparseGrad):
+    A compressed leaf decodes only the blocks that cover them (``lo`` is
+    a multiple of its block): K2 (top-k), K9 (packed) or K12 (quant8)."""
+    if is_compressed(leaf):
         b = leaf.block
-        sub = SparseGrad(leaf.values[lo // b:-(-hi // b)],
-                         leaf.indices[lo // b:-(-hi // b)], (hi - lo,), b)
-        return ops.topk_decompress(sub).float()
+        rows = slice(lo // b, -(-hi // b))
+        if isinstance(leaf, SparseGrad):
+            return ops.topk_decompress(SparseGrad(
+                leaf.values[rows], leaf.indices[rows], (hi - lo,),
+                b)).float()
+        if isinstance(leaf, PackedDiff):
+            return ops.packed_decompress(PackedDiff(
+                leaf.q[rows], leaf.indices[rows], leaf.scale[rows],
+                (hi - lo,), b))
+        return ops.quant_decompress(QuantGrad(
+            leaf.q[rows], leaf.scale[rows], (hi - lo,), b))
     return leaf.reshape(-1)[lo:hi].float()
 
 
@@ -269,7 +297,7 @@ def _parallel_leaf(p, gs, m0, v0, c1, c2, lr, b1, b2, eps):
     (mu_j, nu_j) from the scan, every step's update in parallel, one sum
     into p. Returns new (p, mu, nu) leaves."""
     n, numel = len(gs), p.numel()
-    block = math.lcm(1, *(g.block for g in gs if isinstance(g, SparseGrad)))
+    block = math.lcm(1, *(g.block for g in gs if is_compressed(g)))
     chunk = _chunk_elems(n, block)
     cs = (n, 1)
     p2, mu, nu = (torch.empty_like(t) for t in (p, m0, v0))

@@ -4,15 +4,21 @@
 Modes:
   dense    — plain Adam step: the no-checkpoint baseline, through the
              fused Adam kernel (K3).
-  lowdiff  — paper Algorithm 1 training process: compress the gradient
-             with error feedback — top-k select (K1) on ``grad +
-             residual``, residual ``corrected - decompress(cg)`` with the
-             scatter kernel (K2) — then update the model from the
-             compressed gradient itself: ``topk_apply`` (K4) scatters the
-             wire payload into the Adam update. That is the kernel, and
-             the payload, that recovery replays, so the compressed
-             gradient G̃_t is an exact differential checkpoint. G̃_t is
-             returned for the Reusing Queue.
+  lowdiff  — paper Algorithm 1 training process: compress the gradient,
+             then update the model from the compressed gradient itself,
+             through the fused decode-and-apply kernel of its wire form.
+             That is the kernel, and the payload, that recovery replays,
+             so the compressed gradient G̃_t is an exact differential
+             checkpoint. G̃_t is returned for the Reusing Queue. By
+             ``compressor``:
+             topk   — top-k select (K1) on ``grad + residual``, residual
+                      ``corrected - decompress(cg)`` with the scatter
+                      kernel (K2), update through ``topk_apply`` (K4);
+             packed — the same with int8 picks: ``pack_select`` (K8),
+                      ``pack_scatter`` (K9), ``packed_apply`` (K10);
+             quant8 — blockwise int8 ``quantize`` (K11) of the gradient,
+                      no error feedback, update through ``quant_apply``
+                      (K13); the new state has no ``"ef"``.
   lowdiff_plus — the dense step (K3) that also returns the dense
              gradient tree, which LowDiff+ offloads layer by layer to
              its host replica.
@@ -28,10 +34,15 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import resolve_device, tree_map
-from repro_torch.compression.error_feedback import ef_compress_tree, ef_init
-from repro_torch.compression.sparse import compress_tree, is_sparse
+from repro_torch.compression.error_feedback import (ef_compress_tree_with,
+                                                   ef_init)
+from repro_torch.compression.sparse import is_compressed
 from repro_torch.kernels import ops
 from repro_torch.optim.adam import AdamState, adam_init
+
+
+#: lowdiff gradient compressors (``--compressor``)
+COMPRESSORS = ("topk", "quant8", "packed")
 
 
 def init_state(model, seed: int = 0, *, mode: str = "lowdiff",
@@ -108,7 +119,7 @@ def _apply_tree(params, payloads, opt: AdamState, hyper, count):
     (params', AdamState')."""
     out = tree_map(lambda g, p, m, v: ops.fused_decode_apply(g, p, m, v,
                                                              hyper),
-                   payloads, params, opt.mu, opt.nu, is_leaf=is_sparse)
+                   payloads, params, opt.mu, opt.nu, is_leaf=is_compressed)
     triple = lambda x: isinstance(x, tuple) and not hasattr(x, "_fields")  # noqa: E731
     pick = lambda i: tree_map(lambda t: t[i], out, is_leaf=triple)  # noqa: E731
     return pick(0), AdamState(pick(1), pick(2), count)
@@ -120,12 +131,18 @@ def make_train_step(model, *, mode: str = "lowdiff", rho: float = 0.01,
                     compressor: str = "topk"):
     """``step(state, batch) -> (state', metrics, extra)``; extra is the
     compressed gradient tree in lowdiff mode, the dense gradient tree in
-    lowdiff_plus mode, else None."""
-    if compressor != "topk":
-        raise NotImplementedError(
-            f"compressor {compressor!r} is not ported (ROADMAP slice 3)")
+    lowdiff_plus mode, else None. ``compressor``: 'topk', 'quant8' or
+    'packed'; error feedback applies to topk and packed."""
     if mode not in ("lowdiff", "dense", "lowdiff_plus"):
         raise ValueError(f"unknown step mode {mode!r}")
+    if compressor not in COMPRESSORS:
+        raise ValueError(f"compressor {compressor!r} is not one of "
+                         f"{COMPRESSORS}")
+    compress, decompress = {
+        "topk": (lambda g: ops.topk_compress(g, rho), ops.topk_decompress),
+        "packed": (lambda g: ops.packed_compress(g, rho),
+                   ops.packed_decompress),
+        "quant8": (ops.quant_compress, None)}[compressor]
     cfg = model.cfg
 
     def step(state, batch):
@@ -136,10 +153,11 @@ def make_train_step(model, *, mode: str = "lowdiff", rho: float = 0.01,
         hyper = ops.adam_hyper_traced(lr, b1, b2, eps, count)
         extra, ef = None, None
         if mode == "lowdiff":
-            if error_feedback and "ef" in state:
-                cg, ef = ef_compress_tree(grads, state["ef"], rho)
+            if decompress is not None and error_feedback and "ef" in state:
+                cg, ef = ef_compress_tree_with(grads, state["ef"], compress,
+                                               decompress)
             else:
-                cg = compress_tree(grads, rho)
+                cg = tree_map(compress, grads)
             extra, payloads = cg, cg
         else:
             payloads = grads

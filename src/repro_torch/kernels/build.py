@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("topk", "fused_adam", "replay", "span")
+SOURCES = ("topk", "fused_adam", "replay", "span", "quant8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               # every product and sum rounded on its own, as the plain
@@ -37,7 +37,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"topk_select": 0, "topk_scatter": 0,
                             "adam_tile_update": 0, "topk_apply": 0,
                             "span_pack": 0, "quant_span_decode": 0,
-                            "quant_span_apply": 0}
+                            "quant_span_apply": 0, "pack_select": 0,
+                            "pack_scatter": 0, "packed_apply": 0,
+                            "quantize": 0, "dequantize": 0,
+                            "quant_apply": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -123,9 +126,15 @@ _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #: C entry points per source: prefix -> argtypes
 _SIGS = {
     "topk": {"topk_select_": [_VP, _VP, _VP, _LL, _INT, _VP],
-             "topk_scatter_": [_VP, _VP, _VP, _LL, _INT, _VP]},
+             "topk_scatter_": [_VP, _VP, _VP, _LL, _INT, _VP],
+             "pack_select_": [_VP] * 4 + [_LL, _INT, _VP],
+             "pack_scatter_": [_VP] * 4 + [_LL, _INT, _VP]},
     "fused_adam": {"adam_update_": [_VP] * 8 + [_LL, _VP]},
-    "replay": {"topk_apply_": [_VP] * 9 + [_LL, _INT, _VP]},
+    "replay": {"topk_apply_": [_VP] * 9 + [_LL, _INT, _VP],
+               "packed_apply_": [_VP] * 10 + [_LL, _INT, _VP],
+               "quant_apply_": [_VP] * 9 + [_LL, _VP]},
+    "quant8": {"quantize_": [_VP] * 3 + [_LL, _VP],
+               "dequantize_": [_VP] * 3 + [_LL, _VP]},
     "span": {"span_pack": [_VP] * 4 + [_LL, _LL, _INT, _VP],
              "span_decode": [_VP] * 3 + [_LL] * 3 + [_INT, _VP],
              "span_apply_": [_VP] * 3 + [_LL] * 4 + [_INT, _VP]},

@@ -1,9 +1,12 @@
 // K1 topk_select and K2 topk_scatter: blockwise top-k compression of a
-// gradient, CUDA C++ for sm_90a.
+// gradient; K8 pack_select and K9 pack_scatter: the same with the picks
+// quantized to int8 (the packed compressor). CUDA C++ for sm_90a.
 //
 // Replaces the TPU kernels repro/kernels/topk.py::topk_select
-// (_topk_kernel) and repro/kernels/topk.py::topk_scatter
-// (_decompress_kernel).
+// (_topk_kernel), repro/kernels/topk.py::topk_scatter
+// (_decompress_kernel), repro/kernels/pack.py::pack_select
+// (_pack_kernel) and repro/kernels/pack.py::pack_scatter
+// (_unpack_kernel).
 //
 // Function. The flat tensor x (n elements) is cut into nb = ceil(n/1024)
 // blocks of 1024; the tail of the last block reads as zero, exactly as
@@ -14,15 +17,24 @@
 // added in f32 into zeros at their indices and cast back to the values'
 // dtype (indices within a block are distinct, so add == write, and a
 // -0.0 pick comes out +0.0 as in the reference's f32 sum).
+// K8 selects exactly as K1 (the same kernel, a template flag: the same
+// indices on the same input) and quantizes the f32 picks against the
+// block's absmax, which is the first pick's magnitude:
+//   scale = max(|v0| * f32(1/127), 1e-12);  q = clip(rint(v / scale), +-127)
+// The reciprocal multiply is what the reference computes under jax.jit
+// (XLA rewrites its `/ 127.0`); v / scale is a true division (__fdiv_rn),
+// rint rounds half to even as jnp.round, and the floor is a compare that
+// keeps a NaN. K9 is K2 with each value f32(q) * scale (one rounding)
+// added into the zeroed f32 row.
 //
-// Bound on this card. Both are memory-bound: K1 reads the gradient once
-// (4 B/element in f32, 4.3 GB a step at gpt2-l full width) and writes
-// 8k B per block; K2 writes the dense tensor once and reads 8k B per
-// block. At k = 11 the selection work (k rounds of a 32-lane argmax) is
-// far below the card's instruction rate, so the bound is bytes / HBM
-// bandwidth.
+// Bound on this card. All four are memory-bound: K1/K8 read the gradient
+// once (4 B/element in f32, 4.3 GB a step at gpt2-l full width) and write
+// 8k (K1) or 5k + 4 (K8) B per block; K2/K9 write the dense tensor once
+// and read the payload. At k = 11 the selection work (k rounds of a
+// 32-lane argmax) is far below the card's instruction rate, so the bound
+// is bytes / HBM bandwidth.
 //
-// Design. K1: one warp per 1024-element block. Each lane loads its 32
+// Design. K1/K8: one warp per 1024-element block. Each lane loads its 32
 // elements with 16-byte loads (a full row is 4 KB of coalesced reads)
 // and keeps their magnitudes in registers; a round is a lane-local argmax
 // (kept between rounds, recomputed only by the lane that lost its pick)
@@ -30,9 +42,11 @@
 // lowest column winning ties; the winning lane marks its magnitude -1 (so
 // zero magnitudes are still taken in column order) and writes the pick.
 // The picked value is re-read from x (an L1/L2 hit), which keeps register
-// pressure to the 32 magnitudes. K2: one CTA per block builds the row in
-// shared memory (zero, scatter-add, then one vectorized store), so global
-// memory sees one coalesced write of the dense row.
+// pressure to the 32 magnitudes. In K8 every lane holds the round-0
+// maximum after the reduction, so the scale costs no extra pass. K2/K9:
+// one CTA per block builds the row in shared memory (zero, scatter-add,
+// then one vectorized store), so global memory sees one coalesced write
+// of the dense row.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -47,6 +61,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -56,11 +71,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// ------------------------------------------------------------------ K1
-template <typename T>
+// K8's quantization of one pick against the block's scale
+__device__ __forceinline__ int8_t quantize8(float v, float scale) {
+  float r = rintf(__fdiv_rn(v, scale));
+  r = r < -127.0f ? -127.0f : r;
+  r = r > 127.0f ? 127.0f : r;
+  return (int8_t)(int)r;
+}
+
+// ------------------------------------------------------------- K1 / K8
+// PACK == false: K1, vals are T. PACK == true: K8, vals are int8 q and
+// scale (nb) receives each block's scale.
+template <typename T, bool PACK>
 __global__ void topk_select_kernel(const T* __restrict__ x,
-                                   T* __restrict__ vals,
-                                   int32_t* __restrict__ idx, long long n,
+                                   void* __restrict__ vals,
+                                   int32_t* __restrict__ idx,
+                                   float* __restrict__ scale, long long n,
                                    long long nb, int k) {
   constexpr int VEC = 16 / sizeof(T);        // elements per 16-byte load
   constexpr int PER_LANE = kBlock / kWarp;   // 32 elements per lane
@@ -103,6 +129,7 @@ __global__ void topk_select_kernel(const T* __restrict__ x,
     if (m[i] > bm) { bm = m[i]; bi = i; }
   }
 
+  float sc = 0.0f;                           // K8: the block's scale
   for (int r = 0; r < k; ++r) {
     float wm = bm;
     int wc = (bi / VEC) * STRIDE + lane * VEC + bi % VEC;
@@ -112,10 +139,20 @@ __global__ void topk_select_kernel(const T* __restrict__ x,
       const int oc = __shfl_xor_sync(kFull, wc, off);
       if (om > wm || (om == wm && oc < wc)) { wm = om; wc = oc; }
     }
+    if (PACK && r == 0) {                    // wm == |first pick| everywhere
+      const float a = wm * (float)(1.0 / 127.0);
+      sc = a < 1e-12f ? 1e-12f : a;
+      if (lane == 0) scale[row] = sc;
+    }
     const int owner = (wc % STRIDE) / VEC;
     if (lane == owner) {
       const long long c = base + wc;
-      vals[row * k + r] = c < n ? x[c] : from_f<T>(0.0f);
+      const T v = c < n ? x[c] : from_f<T>(0.0f);
+      if (PACK) {
+        static_cast<int8_t*>(vals)[row * k + r] = quantize8(to_f(v), sc);
+      } else {
+        static_cast<T*>(vals)[row * k + r] = v;
+      }
       idx[row * k + r] = wc;
       const int pos = (wc / STRIDE) * VEC + wc % VEC;
 #pragma unroll
@@ -132,14 +169,17 @@ __global__ void topk_select_kernel(const T* __restrict__ x,
   }
 }
 
-// ------------------------------------------------------------------ K2
+// ------------------------------------------------------------- K2 / K9
 template <typename T> struct Vec4;   // four T in one aligned word
 template <> struct Vec4<float> { typedef float4 type; };
 template <> struct Vec4<__nv_bfloat16> { typedef uint2 type; };
 
-template <typename T>
-__global__ void topk_scatter_kernel(const T* __restrict__ vals,
+// K2: V == T, scale == nullptr. K9: V == int8_t (q), T == float, each
+// value f32(q) * scale[block].
+template <typename T, typename V, bool PACK>
+__global__ void topk_scatter_kernel(const V* __restrict__ vals,
                                     const int32_t* __restrict__ idx,
+                                    const float* __restrict__ scale,
                                     T* __restrict__ out, long long n,
                                     int k) {
   __shared__ __align__(16) float row[kBlock];
@@ -148,7 +188,9 @@ __global__ void topk_scatter_kernel(const T* __restrict__ vals,
   reinterpret_cast<float4*>(row)[t] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
   for (int j = t; j < k; j += blockDim.x) {
-    row[idx[r * k + j]] += to_f(vals[r * k + j]);
+    float v = to_f(vals[r * k + j]);
+    if (PACK) v = v * scale[r];
+    row[idx[r * k + j]] += v;
   }
   __syncthreads();
   const long long c0 = r * kBlock + 4 * t;
@@ -165,25 +207,26 @@ __global__ void topk_scatter_kernel(const T* __restrict__ vals,
   }
 }
 
-template <typename T>
-int launch_select(const void* x, void* vals, void* idx, long long n, int k,
-                  void* stream) {
+template <typename T, bool PACK>
+int launch_select(const void* x, void* vals, void* idx, void* scale,
+                  long long n, int k, void* stream) {
   const long long nb = (n + kBlock - 1) / kBlock;
   const int rows_per_cta = 8;                // 8 warps
   const long long grid = (nb + rows_per_cta - 1) / rows_per_cta;
-  topk_select_kernel<T><<<(unsigned)grid, rows_per_cta * kWarp, 0,
-                          (cudaStream_t)stream>>>(
-      (const T*)x, (T*)vals, (int32_t*)idx, n, nb, k);
+  topk_select_kernel<T, PACK><<<(unsigned)grid, rows_per_cta * kWarp, 0,
+                                (cudaStream_t)stream>>>(
+      (const T*)x, vals, (int32_t*)idx, (float*)scale, n, nb, k);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_scatter(const void* vals, const void* idx, void* out, long long n,
-                   int k, void* stream) {
+template <typename T, typename V, bool PACK>
+int launch_scatter(const void* vals, const void* idx, const void* scale,
+                   void* out, long long n, int k, void* stream) {
   const long long nb = (n + kBlock - 1) / kBlock;
-  topk_scatter_kernel<T><<<(unsigned)nb, kBlock / 4, 0,
-                           (cudaStream_t)stream>>>(
-      (const T*)vals, (const int32_t*)idx, (T*)out, n, k);
+  topk_scatter_kernel<T, V, PACK><<<(unsigned)nb, kBlock / 4, 0,
+                                    (cudaStream_t)stream>>>(
+      (const V*)vals, (const int32_t*)idx, (const float*)scale, (T*)out, n,
+      k);
   return (int)cudaGetLastError();
 }
 
@@ -194,21 +237,43 @@ extern "C" {
 // x: n elements (16-byte aligned); vals/idx: (ceil(n/1024), k).
 int topk_select_f32(const void* x, void* vals, void* idx, long long n,
                     int k, void* stream) {
-  return launch_select<float>(x, vals, idx, n, k, stream);
+  return launch_select<float, false>(x, vals, idx, nullptr, n, k, stream);
 }
 int topk_select_bf16(const void* x, void* vals, void* idx, long long n,
                      int k, void* stream) {
-  return launch_select<__nv_bfloat16>(x, vals, idx, n, k, stream);
+  return launch_select<__nv_bfloat16, false>(x, vals, idx, nullptr, n, k,
+                                             stream);
 }
 
 // vals/idx: (ceil(n/1024), k); out: n elements (16-byte aligned).
 int topk_scatter_f32(const void* vals, const void* idx, void* out,
                      long long n, int k, void* stream) {
-  return launch_scatter<float>(vals, idx, out, n, k, stream);
+  return launch_scatter<float, float, false>(vals, idx, nullptr, out, n, k,
+                                             stream);
 }
 int topk_scatter_bf16(const void* vals, const void* idx, void* out,
                       long long n, int k, void* stream) {
-  return launch_scatter<__nv_bfloat16>(vals, idx, out, n, k, stream);
+  return launch_scatter<__nv_bfloat16, __nv_bfloat16, false>(
+      vals, idx, nullptr, out, n, k, stream);
+}
+
+// x: n elements (16-byte aligned); q int8 / idx int32 (ceil(n/1024), k);
+// scale f32 (ceil(n/1024)).
+int pack_select_f32(const void* x, void* q, void* idx, void* scale,
+                    long long n, int k, void* stream) {
+  return launch_select<float, true>(x, q, idx, scale, n, k, stream);
+}
+int pack_select_bf16(const void* x, void* q, void* idx, void* scale,
+                     long long n, int k, void* stream) {
+  return launch_select<__nv_bfloat16, true>(x, q, idx, scale, n, k, stream);
+}
+
+// q/idx (ceil(n/1024), k), scale (ceil(n/1024)); out: n f32 (16-byte
+// aligned).
+int pack_scatter_f32(const void* q, const void* idx, const void* scale,
+                     void* out, long long n, int k, void* stream) {
+  return launch_scatter<float, int8_t, true>(q, idx, scale, out, n, k,
+                                             stream);
 }
 
 }  // extern "C"

@@ -11,8 +11,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.compression.packed import PackedDiff
+from repro_torch.compression.quant import QuantGrad
 from repro_torch.compression.sparse import BLOCK, SparseGrad, k_for
 from repro_torch.kernels import fused_adam as _fa
+from repro_torch.kernels import pack as _pk
+from repro_torch.kernels import quant8 as _q8
 from repro_torch.kernels import replay as _rp
 from repro_torch.kernels import span as _sp
 from repro_torch.kernels import topk as _tk
@@ -26,12 +30,42 @@ def topk_compress(x: torch.Tensor, rho: float, *,
     return SparseGrad(vals, idx, tuple(x.shape), block)
 
 
-def topk_decompress(sg: SparseGrad) -> torch.Tensor:
+def _numel(shape) -> int:
     n = 1
-    for d in sg.shape:
+    for d in shape:
         n *= int(d)
-    return _tk.topk_scatter(sg.values, sg.indices, n,
+    return n
+
+
+def topk_decompress(sg: SparseGrad) -> torch.Tensor:
+    return _tk.topk_scatter(sg.values, sg.indices, _numel(sg.shape),
                             block=sg.block).reshape(sg.shape)
+
+
+def packed_compress(x: torch.Tensor, rho: float, *,
+                    block: int = BLOCK) -> PackedDiff:
+    """Top-k + int8 quantize + wire pack in one pass (K8): the payload
+    comes off the device in the frame serializer's layout."""
+    q, idx, scale = _pk.pack_select(x, k_for(rho, block), block=block)
+    return PackedDiff(q, idx, scale, tuple(x.shape), block)
+
+
+def packed_decompress(pd: PackedDiff) -> torch.Tensor:
+    """Inverse of :func:`packed_compress` (K9): dense f32."""
+    return _pk.pack_scatter(pd.q, pd.indices, pd.scale, _numel(pd.shape),
+                            block=pd.block).reshape(pd.shape)
+
+
+def quant_compress(x: torch.Tensor, *, block: int = BLOCK) -> QuantGrad:
+    """Blockwise absmax int8 (K11)."""
+    q, scale = _q8.quantize(x, block=block)
+    return QuantGrad(q, scale, tuple(x.shape), block)
+
+
+def quant_decompress(qg: QuantGrad) -> torch.Tensor:
+    """Inverse of :func:`quant_compress` (K12): dense f32."""
+    return _q8.dequantize(qg.q, qg.scale, _numel(qg.shape),
+                          block=qg.block).reshape(qg.shape)
 
 
 def quant_span_encode(x2d: torch.Tensor, *, bits: int):
@@ -75,14 +109,32 @@ def adam_hyper_traced(lr, b1, b2, eps, count: torch.Tensor) -> torch.Tensor:
 _CONSTS: dict = {}
 
 
+def _check_shape(payload, p) -> None:
+    if tuple(payload.shape) != tuple(p.shape):
+        raise ValueError(f"differential shape {tuple(payload.shape)} != "
+                         f"leaf shape {tuple(p.shape)}")
+
+
 def fused_sparse_apply(sg: SparseGrad, p, mu, nu, hyper):
     """Scatter the wire (values, indices) straight into the Adam update
     (K4): no dense gradient outside the kernel's accumulator."""
-    if tuple(sg.shape) != tuple(p.shape):
-        raise ValueError(f"differential shape {tuple(sg.shape)} != leaf "
-                         f"shape {tuple(p.shape)}")
+    _check_shape(sg, p)
     return _rp.topk_apply(sg.values, sg.indices, p, mu, nu, hyper,
                           block=sg.block)
+
+
+def fused_packed_apply(pd: PackedDiff, p, mu, nu, hyper):
+    """Dequantize + scatter + Adam in one pass over a packed payload
+    (K10)."""
+    _check_shape(pd, p)
+    return _rp.packed_apply(pd.q, pd.indices, pd.scale, p, mu, nu, hyper,
+                            block=pd.block)
+
+
+def fused_quant_apply(qg: QuantGrad, p, mu, nu, hyper):
+    """Dequantize the int8 blocks inside the Adam pass (K13)."""
+    _check_shape(qg, p)
+    return _rp.quant_apply(qg.q, qg.scale, p, mu, nu, hyper, block=qg.block)
 
 
 def fused_adam_update(p, g, mu, nu, hyper):
@@ -91,8 +143,13 @@ def fused_adam_update(p, g, mu, nu, hyper):
 
 
 def fused_decode_apply(payload, p, mu, nu, hyper):
-    """Apply one differential leaf to (p, mu, nu): a top-k payload through
-    K4, a dense gradient through K3."""
+    """Apply one differential leaf to (p, mu, nu), dispatching on its
+    wire container: top-k through K4, packed through K10, quant8 through
+    K13, a dense gradient through K3."""
     if isinstance(payload, SparseGrad):
         return fused_sparse_apply(payload, p, mu, nu, hyper)
+    if isinstance(payload, PackedDiff):
+        return fused_packed_apply(payload, p, mu, nu, hyper)
+    if isinstance(payload, QuantGrad):
+        return fused_quant_apply(payload, p, mu, nu, hyper)
     return fused_adam_update(p, payload, mu, nu, hyper)

@@ -47,6 +47,18 @@ def topk_select_ref(xb: torch.Tensor, k: int):
     return torch.gather(xb, 1, idx), idx.to(torch.int32)
 
 
+def absmax_quantize(x: torch.Tensor, amax: torch.Tensor, qmax: float):
+    """The absmax codec shared by K5, K8 and K11: scale = max(amax *
+    f32(1/qmax), 1e-12) — a reciprocal multiply, what the reference
+    computes under ``jax.jit`` — and q = clip(round-half-even(x / scale),
+    +-qmax) with a true division. Returns (q int32, scale f32)."""
+    recip = torch.tensor(1.0 / qmax, dtype=torch.float32, device=x.device)
+    floor = torch.tensor(1e-12, dtype=torch.float32, device=x.device)
+    scale = torch.maximum(amax * recip, floor)
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
+    return q, scale
+
+
 def topk_scatter_ref(vals: torch.Tensor, idxs: torch.Tensor, block: int):
     """(nb, k) values + block-local indices -> dense (nb, block): added
     in f32 into zeros, cast to the values' dtype."""
@@ -54,6 +66,40 @@ def topk_scatter_ref(vals: torch.Tensor, idxs: torch.Tensor, block: int):
                       device=vals.device)
     out.scatter_add_(1, idxs.long(), vals.float())
     return out.to(vals.dtype)
+
+
+# -------------------- packed and quant8 compressors (K8, K9, K11, K12) --
+
+def pack_select_ref(xb: torch.Tensor, k: int):
+    """K8: the top-k of :func:`topk_select_ref`, the f32 picks quantized
+    to int8 against the block's absmax (the first pick). xb: (nb, block)
+    -> (q int8 (nb, k), int32 indices (nb, k), scale f32 (nb, 1))."""
+    vals, idx = topk_select_ref(xb, k)
+    vals = vals.float()
+    q, scale = absmax_quantize(vals, vals[:, :1].abs(), 127.0)
+    return q.to(torch.int8), idx, scale
+
+
+def pack_scatter_ref(q, idxs, scale, block: int) -> torch.Tensor:
+    """K9: f32(q) * scale added into zeros at the block-local indices ->
+    dense f32 (nb, block)."""
+    out = torch.zeros((q.shape[0], block), dtype=torch.float32,
+                      device=q.device)
+    out.scatter_add_(1, idxs.long(), q.float() * scale.reshape(-1, 1))
+    return out
+
+
+def quantize_ref(xb: torch.Tensor):
+    """K11: per-block absmax int8. xb: (nb, block) -> (q int8 (nb,
+    block), scale f32 (nb, 1))."""
+    x = xb.float()
+    q, scale = absmax_quantize(x, x.abs().amax(dim=1, keepdim=True), 127.0)
+    return q.to(torch.int8), scale
+
+
+def dequantize_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K12: f32(q) * scale per block -> (nb, block) f32."""
+    return q.float() * scale.reshape(-1, 1)
 
 
 def adam_tile_update_ref(p, g, mu, nu, hyper):
@@ -88,6 +134,18 @@ def topk_apply_ref(vals, idxs, p, mu, nu, hyper, *, block: int):
     return adam_replay_update_ref(p, g, mu, nu, hyper)
 
 
+def packed_apply_ref(q, idxs, scale, p, mu, nu, hyper, *, block: int):
+    """K10: dequantize a packed payload (f32(q) * scale), then K4."""
+    return topk_apply_ref(q.float() * scale.reshape(-1, 1), idxs, p, mu, nu,
+                          hyper, block=block)
+
+
+def quant_apply_ref(q, scale, p, mu, nu, hyper):
+    """K13: g = f32(q) * scale, dense, then K4's Adam tail. q: (nb,
+    block) int8; scale: nb f32 (any shape)."""
+    return adam_replay_update_ref(p, dequantize_ref(q, scale), mu, nu, hyper)
+
+
 # -------------------- quantized row-span codec (K5-K7) ---------------
 
 def span_pack_ref(x2d: torch.Tensor, bits: int):
@@ -105,10 +163,7 @@ def span_pack_ref(x2d: torch.Tensor, bits: int):
                            device=x.device))
     if bits == 4 and cols % 2:
         x = F.pad(x, (0, 1))
-    recip = torch.tensor(1.0 / qmax, dtype=torch.float32, device=x.device)
-    floor = torch.tensor(1e-12, dtype=torch.float32, device=x.device)
-    scale = torch.maximum(x.abs().amax(dim=1, keepdim=True) * recip, floor)
-    qi = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
+    qi, scale = absmax_quantize(x, x.abs().amax(dim=1, keepdim=True), qmax)
     if bits == 8:
         return qi.to(torch.int8), scale
     lo = qi[:, 0::2] & 0xF

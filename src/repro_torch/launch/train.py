@@ -18,6 +18,9 @@ Examples::
         --arch gpt2-l --reduced --strategy lowdiff_plus \\
         --persist-mode incremental --dirty-granularity row \\
         --diff-quant int4 --steps 8 --fail-at 6
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch gpt2-l --reduced --compressor packed --steps 8 \
+        --full-interval 4 --fail-at 7
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from repro_torch.checkpoint.backends import BACKENDS
 from repro_torch.checkpoint.io import FORMATS
 from repro_torch.configs import _REGISTRY, get_config
 from repro_torch.core.engine import STRATEGIES, EngineConfig, make_engine
-from repro_torch.core.steps import init_state, make_train_step
+from repro_torch.core.steps import COMPRESSORS, init_state, make_train_step
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.models.registry import build_model
 from repro_torch.obs.log import configure as configure_logging, get_logger
@@ -166,8 +169,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "tier is ported)")
     ap.add_argument("--format", choices=FORMATS, default="frame",
                     help="checkpoint serialization (streamed frames)")
-    ap.add_argument("--compressor", choices=("topk",), default="topk",
-                    help="lowdiff gradient compression: blockwise top-k")
+    ap.add_argument("--compressor", choices=COMPRESSORS, default="topk",
+                    help="lowdiff gradient compression: topk sparsification, "
+                         "quant8 blockwise int8, or packed (fused top-k + "
+                         "int8 + wire pack in one kernel)")
     ap.add_argument("--persist-mode", choices=("full", "incremental"),
                     default="full",
                     help="lowdiff_plus persistence: 'full' rewrites the "
@@ -210,9 +215,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--replay-device", choices=("on", "off"), default="off",
                     help="recovery replay: 'on' stages the compressed "
                          "payloads on the device per window and replays "
-                         "them through the topk_apply kernel (bitwise "
-                         "equal to the trained state); 'off' runs the "
-                         "log-depth parallel replay")
+                         "them through the compressor's fused apply "
+                         "kernel (bitwise equal to the trained state); "
+                         "'off' runs the log-depth parallel replay")
     ap.add_argument("--snapshot-shards", type=int, default=4,
                     help="full snapshots land in this many shards, each "
                          "shard's device buffers released as it lands")
