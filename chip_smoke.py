@@ -14,7 +14,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the nearest single PyTorch call over one step's worth of leaves; then
    the same for K8-K13, the packed and quant8 compressors (bitwise, K8's
    indices also equal to K1's), with their edge cases (ragged last
-   block, all-zero block, ties, half steps, bf16 params, k == 0);
+   block, all-zero block, ties, half steps, bf16 params, k == 0). K1 and
+   K8 also meet the selection's adversarial inputs (``_select_inputs``:
+   signed zeros, blocks with exactly and fewer than k nonzeros, an
+   embedding-like tensor, heavy tails, many tied maxima) at k in {1, 2,
+   11, 31, 32, 33, 103, 1024}; K1 is timed at k = 1, 11 and 32
+   (``[diagnose]``), and each timed input set prints the share of its
+   blocks that the selection takes through each path (``[paths]``);
 A. hold K5-K7 (the int8/int4 row-span codec) against their plain
    versions, bitwise, on every gpt2-l leaf as LowDiff+ quantizes it and
    on edge cases (cols 1 and odd, n 1 and 9, zero rows, bf16 leaves),
@@ -27,7 +33,9 @@ A. hold K5-K7 (the int8/int4 row-span codec) against their plain
    and require the recovered params/opt to equal the trained ones bit
    for bit; recover again with the default parallel replay, within its
    reassociation tolerance, and report its time and peak device memory;
-   check that K1, K2 and K4 launched;
+   check that K1, K2 and K4 launched; after the flush, K1 is held to
+   its plain version and timed on the run's own error-feedback residual
+   (``[residual]``, launches not counted as the path's);
 4. three ``--strategy none`` (dense) steps, which launch K3;
 B. drive the LowDiff+ path: ``LowDiffPlus`` (incremental, row, int4
    with int8 moments) on full-width gpt2-l for 3 steps (one full, two
@@ -38,7 +46,8 @@ B. drive the LowDiff+ path: ``LowDiffPlus`` (incremental, row, int4
 C. phase 3 with ``--compressor packed`` (K8, K9, K10) at the depth of a
    short run: f=4, b=2, resumed at step 3, so 4 steps write a full at
    step 4 and 3 differentials; fail at step 7, recover by device replay
-   (bitwise) and by parallel replay (within tolerance);
+   (bitwise) and by parallel replay (within tolerance); K8 on the run's
+   residual as K1 in phase 3;
 D. the same with ``--compressor quant8`` (K11, K12, K13; no error
    feedback);
 5. print the ``kernels`` JSON line, the card's name and power limit,
@@ -52,6 +61,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -125,9 +135,14 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s "
         + " ".join(f"{k}={v:.2f}s" for k, v in secs.items()))
     for name in build.SOURCES:
+        fn = ""
         for line in build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Function properties for \S*?\d([a-z_]+_kernel)I"
+                          r"(\w+?)E+v", line)
+            if m:               # e.g. topk_select_kernel<fLb1>: f32, K8
+                fn = f"{m.group(1)}<{m.group(2)}>"
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}: {fn}: {line.strip()}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -139,10 +154,95 @@ def _leaf_shapes(cfg):
                                                 is_leaf=is_spec)]
 
 
+#: k values the selection (K1/K8) is checked at: both sides of the
+#: 32-lane threshold's limit, the main path's 11, and the extremes
+SELECT_KS = (1, 2, 11, 31, 32, 33, 103, 1024)
+SELECT_PATHS = ("fast", "tie", "fallback")
+
+
+def _select_inputs(dev, g):
+    """Adversarial inputs of the top-k selection (the CPU test
+    ``tests/test_torch_topk_select.py`` builds the same kinds in numpy):
+    ties in {-3..3} with an all-zero block, all zeros, signed zeros,
+    blocks with exactly 11, exactly 32 and fewer than 11 nonzeros, an
+    embedding-like tensor (a few nonzero rows of width 1280 in zeros),
+    Student-t with 1 and 3 degrees of freedom, 40 tied maxima per block,
+    large values in the columns of ten lanes only, bfloat16 — most with
+    a ragged last block."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    ties = torch.randint(-3, 4, (5 * 1024 + 300,), generator=g,
+                         device=dev).float()
+    ties[1024:2048] = 0.0
+    signed = torch.where(randn(2 * 1024 + 77) < 0, -0.0, 0.0)
+    signed[1024 + 500] = -2.0
+    sparse = torch.zeros(4 * 1024, device=dev)
+    for b, nz in enumerate((11, 32, 5, 1)):
+        cols = torch.randperm(1024, generator=g, device=dev)[:nz]
+        sparse[b * 1024 + cols] = randn(nz)
+    embed = torch.zeros((40, 1280), device=dev)
+    embed[[3, 17, 18, 39]] = randn(4, 1280)
+    chi3 = (randn(3, 3000) ** 2).sum(0) / 3
+    tied = randn(3 * 1024 + 11)
+    for b in range(3):
+        cols = torch.randperm(1024, generator=g, device=dev)[:40]
+        tied[b * 1024 + cols] = 5.0 * (-1.0) ** b
+    # large values only in the columns of lanes 0-9 (f32 layout): more
+    # than 32 elements above the 11th lane maximum
+    lanes = randn(2 * 1024 + 600)
+    lanes[torch.arange(lanes.numel(), device=dev) % 128 < 40] *= 1000.0
+    return [("ties", ties), ("zeros", torch.zeros(3 * 1024 + 5, device=dev)),
+            ("signed zeros", signed), ("k nonzeros", sparse),
+            ("embedding", embed), ("student-t1", randn(2500) / randn(2500)),
+            ("student-t3", randn(3000) / chi3.sqrt()), ("tied maxima", tied),
+            ("ten lanes", lanes),
+            ("bf16", randn(3000).to(torch.bfloat16)),
+            ("bf16 embedding", embed.to(torch.bfloat16))]
+
+
+def _path_shares(xs, k):
+    """Share of the 1024-blocks of the tensors ``xs`` that K1/K8's
+    selection (``csrc/topk.cu``) takes through each path, by the kernel's
+    own rule computed here in torch: lane l of a block holds the columns
+    j * 32 * VEC + l * VEC + e (VEC = 16 bytes / element size), t0 is the
+    k-th largest of the 32 lane maxima of |x|; "fast" if at most 32
+    elements have |x| >= t0, else "tie" if at most 32 have |x| > t0,
+    else (and whenever k > 32) "fallback"."""
+    from repro_torch.kernels import ref
+    counts = dict.fromkeys(SELECT_PATHS, 0)
+    for x in xs:
+        vec = 16 // x.element_size()
+        xb = ref.to_blocks(x, 1024)[0]
+        for c0 in range(0, xb.shape[0], 1 << 16):
+            mag = xb[c0:c0 + (1 << 16)].float().abs()
+            m = mag.shape[0]
+            if k > 32:
+                counts["fallback"] += m
+                continue
+            lane_max = mag.view(m, 1024 // (32 * vec), 32, vec).amax(
+                dim=(1, 3))
+            t0 = lane_max.topk(k, dim=1).values[:, k - 1:]
+            fast = (mag >= t0).sum(1) <= 32
+            tie = ~fast & ((mag > t0).sum(1) <= 32)
+            counts["fast"] += int(fast.sum())
+            counts["tie"] += int(tie.sum())
+            counts["fallback"] += m - int(fast.sum()) - int(tie.sum())
+    total = sum(counts.values())
+    return {p: c / total for p, c in counts.items()}
+
+
+def _fmt_shares(shares) -> str:
+    return " ".join(f"{p}={shares[p]:.6f}" for p in SELECT_PATHS)
+
+
 def _edge_cases(dev, err):
     """Small inputs that exercise ties, zero blocks, ragged tails, k
-    extremes and bfloat16 — exact/bitwise against the plain versions.
-    Raises each kernel's entry of ``err`` to its largest |kernel - plain|."""
+    extremes and bfloat16 — exact/bitwise against the plain versions;
+    then K1/K2 on the selection's adversarial inputs at every k of
+    ``SELECT_KS``. Raises each kernel's entry of ``err`` to its largest
+    |kernel - plain|."""
     import torch
     from repro_torch.kernels import fused_adam, ref, replay, topk
     from repro_torch.kernels.ops import adam_hyper_traced
@@ -190,7 +290,25 @@ def _edge_cases(dev, err):
             if not all(bits_equal(a, b) for a, b in zip(out, rout)):
                 fail(f"K3 edge case {x.dtype} n={x.numel()}")
             n_checks += 5
+    sel = _select_inputs(dev, g)
+    for name, x in sel:
+        for k in SELECT_KS:
+            v, i = topk.topk_select(x, k)
+            rv, ri = ref.topk_select_ref(ref.to_blocks(x, 1024)[0], k)
+            err["topk_select"] = max(err["topk_select"], abs_err(v, rv),
+                                     abs_err(i, ri))
+            if not (torch.equal(i, ri) and bits_equal(v, rv)):
+                fail(f"K1 on {name} {tuple(x.shape)} k={k}")
+            d = topk.topk_scatter(v, i, x.numel())
+            rd = ref.topk_scatter_ref(rv, ri, 1024).reshape(-1)[:x.numel()]
+            err["topk_scatter"] = max(err["topk_scatter"], abs_err(d, rd))
+            if not bits_equal(d, rd):
+                fail(f"K2 on {name} {tuple(x.shape)} k={k}")
+            n_checks += 2
     log(f"[parity] edge cases: {n_checks} kernel/plain comparisons equal")
+    for k in (11, 32):
+        log(f"[paths] K1 edge cases k={k}: "
+            f"{_fmt_shares(_path_shares([x for _, x in sel], k))}")
 
 
 def phase_parity(cfg, dev, reps: int = REPS):
@@ -230,6 +348,17 @@ def phase_parity(cfg, dev, reps: int = REPS):
     log("[parity] K1 topk_select: indices and values exactly equal on "
         "every leaf")
     ms = timed(lambda: [topk.topk_select(x, k) for x in xs], reps)
+    # what the selection costs per k: k = 1 is the load with one pick,
+    # the slope to k = 32 what each further pick adds
+    diag = {kk: timed(lambda kk=kk: [topk.topk_select(x, kk) for x in xs],
+                      reps) for kk in (1, 11, 32)}
+    log("[diagnose] K1 topk_select over one step's leaves: "
+        + " ".join(f"k={kk}: {t:.4f} ms" for kk, t in diag.items())
+        + f"; slope (k=32 - k=1) / 31 = {(diag[32] - diag[1]) / 31:.4f} "
+        f"ms per pick")
+    for kk in (k, 32):
+        log(f"[paths] K1 random leaves k={kk}: "
+            f"{_fmt_shares(_path_shares(xs, kk))}")
     plain = timed(lambda: [ref.topk_select_ref(ref.to_blocks(x, 1024)[0], k)
                            for x in xs], max(1, reps // 5))
     xbs = [ref.to_blocks(x, 1024)[0] for x in xs]
@@ -252,11 +381,13 @@ def phase_parity(cfg, dev, reps: int = REPS):
                         for x, (v, i) in zip(xs, outs)], reps)
     plain = timed(lambda: [ref.topk_scatter_ref(v, i, 1024)
                            for v, i in outs], max(1, reps // 2))
-    zs = [torch.zeros((nb, 1024), device=dev) for nb in nbs]
+    # the library call makes the dense tensor K2 makes: a zero fill of
+    # every block, then the scatter (the int64 indices scatter_ takes are
+    # converted once, outside the timed calls)
     i64 = [i.long() for _, i in outs]
-    lib = timed(lambda: [z.scatter_(1, i, v) for z, i, (v, _)
-                         in zip(zs, i64, outs)], reps)
-    del zs, i64
+    lib = timed(lambda: [torch.zeros((nb, 1024), device=dev).scatter_(1, i, v)
+                         for nb, i, (v, _) in zip(nbs, i64, outs)], reps)
+    del i64
     res["topk_scatter"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                bytes=4 * n_all + 8 * k * nb_all,
                                ops=k * nb_all)
@@ -409,6 +540,13 @@ def phase_compressors(cfg, dev, reps: int = REPS):
                 nu = torch.rand(x.shape, generator=g, device=dev) * 0.01
                 _compressor_checks(err, x, k, p, mu, nu, hyper)
                 n_checks += 8
+    for _, x in _select_inputs(dev, g):       # the selection's adversaries
+        for k in SELECT_KS:
+            p = torch.randn(x.shape, generator=g, device=dev)
+            mu = torch.randn(x.shape, generator=g, device=dev) * 0.1
+            nu = torch.rand(x.shape, generator=g, device=dev) * 0.01
+            _compressor_checks(err, x, k, p, mu, nu, hyper)
+            n_checks += 8
     zq, _, zs = pack.pack_select(ties, 11)
     z8, zs8 = quant8.quantize(ties)
     if not (float(zs[1, 0]) == float(zs8[1]) == float(torch.tensor(1e-12))
@@ -429,6 +567,7 @@ def phase_compressors(cfg, dev, reps: int = REPS):
     torch.cuda.empty_cache()
     log("[parity] K8-K13: bitwise equal to the plain versions on every "
         "leaf (K8 indices == K1 indices)")
+    log(f"[paths] K8 random leaves k={k}: {_fmt_shares(_path_shares(xs, k))}")
     packs = [o[0] for o in outs]
     q8s = [o[1] for o in outs]
     ns = [x.numel() for x in xs]
@@ -754,6 +893,49 @@ def _replay_close(got, want) -> float:
     return worst
 
 
+def _residual_check(state, compressor: str, reps: int = REPS):
+    """K1 (``topk``) or K8 (``packed``) on the run's own error-feedback
+    residual ``state["ef"]`` (its 12 leaves keep the rows of the
+    embedding that no token of the run touched at zero, which random
+    leaves lack): bitwise against the plain version (K8's indices also
+    against K1's), timed, with the share of blocks on each selection
+    path. Its launches are measurement, not the path's: the counts are
+    put back as they were."""
+    import torch
+    from repro_torch import tree_leaves
+    from repro_torch.compression.sparse import k_for
+    from repro_torch.kernels import build, pack, ref, topk
+    counts = dict(build.LAUNCHES)
+    xs = tree_leaves(state["ef"])
+    k = k_for(0.01)
+    name, fn, plain = (("K1 topk_select", topk.topk_select,
+                        ref.topk_select_ref) if compressor == "topk" else
+                       ("K8 pack_select", pack.pack_select,
+                        ref.pack_select_ref))
+    for x in xs:
+        got = fn(x, k)
+        want = plain(ref.to_blocks(x, 1024)[0], k)
+        if not all(bits_equal(a, b) for a, b in zip(got, want)):
+            fail(f"{name} != plain version on the residual leaf "
+                 f"{tuple(x.shape)}")
+        if compressor == "packed" and not torch.equal(
+                got[1], topk.topk_select(x, k)[1]):
+            fail(f"K8 indices != K1 indices on the residual leaf "
+                 f"{tuple(x.shape)}")
+        del got, want
+    ms = timed(lambda: [fn(x, k) for x in xs], reps)
+    nb = sum(-(-x.numel() // 1024) for x in xs)
+    zero = sum(int((ref.to_blocks(x, 1024)[0] == 0).all(1).sum())
+               for x in xs)
+    log(f"[residual] {name} on this run's EF residual ({len(xs)} leaves, {nb} "
+        f"blocks, {zero} all-zero): bitwise equal to the plain version; "
+        f"kernel_ms={ms:.4f}")
+    log(f"[paths] {name} EF residual k={k}: "
+        f"{_fmt_shares(_path_shares(xs, k))}")
+    build.LAUNCHES.update(counts)
+    torch.cuda.empty_cache()
+
+
 #: kernels each compressor's training and recovery must launch
 PATH_KERNELS = {"topk": ("topk_select", "topk_scatter", "topk_apply"),
                 "packed": ("pack_select", "pack_scatter", "packed_apply"),
@@ -827,6 +1009,8 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
     t0 = time.perf_counter()
     strat.flush()
     flush_s = time.perf_counter() - t0
+    if compressor in ("topk", "packed"):
+        _residual_check(state, compressor)
     log(f"*** injected failure at step {fail_at} ***")
     del state
     torch.cuda.empty_cache()
