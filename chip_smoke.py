@@ -23,9 +23,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    blocks that the selection takes through each path (``[paths]``);
 A. hold K5-K7 (the int8/int4 row-span codec) against their plain
    versions, bitwise, on every gpt2-l leaf as LowDiff+ quantizes it and
-   on edge cases (cols 1 and odd, n 1 and 9, zero rows, bf16 leaves),
-   and K5/K6 against the numpy codec on a row slice of each leaf; time
-   them over one step's worth of rows;
+   on edge cases (cols 1 and odd, n 1 and 9, zero rows, bf16 leaves, a
+   row wider than the grid's shared memory, which K5 packs on its
+   two-pass path), and K5/K6 against the numpy codec on a row slice of
+   each leaf; print K5's plan per leaf and the rows and elements of each
+   of its paths (``[paths] span_pack``); time them over one step's worth
+   of rows (K5 at int8 and int4, K6 beside ``torch.mul(q, scale)``);
 3. drive the LowDiff path: ``LowDiff`` on full-width gpt2-l (batch 4,
    seq 64, the CLI's f=20, b=2), resumed at step 19 so that its 20 steps
    write a full and then the longest chain those defaults produce (19
@@ -137,12 +140,18 @@ def phase_build():
     for name in build.SOURCES:
         fn = ""
         for line in build.ptxas_report(name).splitlines():
-            m = re.search(r"Function properties for \S*?\d([a-z_]+_kernel)I"
-                          r"(\w+?)E+v", line)
+            m = re.search(r"Function properties for \S*?\d([a-z_]+_kernel)"
+                          r"(?:I(\w+?)E+v)?", line)
             if m:               # e.g. topk_select_kernel<fLb1>: f32, K8
-                fn = f"{m.group(1)}<{m.group(2)}>"
+                fn = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}: {fn}: {line.strip()}")
+    import torch
+    from repro_torch.kernels import span
+    grid, cap, smem, per_sm = span.pack_limits(torch.device("cuda", 0))
+    log(f"[build] span: pack_one_pass_kernel: {smem} B dynamic shared "
+        f"memory per CTA, {per_sm} CTA per SM, cooperative grid {grid}, "
+        f"segment capacity {cap} f32")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -703,6 +712,28 @@ def _span_edge_cases(dev, err):
                 s.cpu().numpy().view(np.int32), ns.view(np.int32))):
             fail(f"K5 int{bits} != encode_rows at half steps")
         n_checks += 1
+    # a row wider than the grid's shared memory: the two-pass path
+    grid, cap = span.pack_limits(dev)[:2]
+    wide = max(9_000_000, grid * cap + 1)
+    x = torch.randn((1, wide), generator=g, device=dev)
+    x[0, -1] = 60.0
+    xn = x.cpu().numpy()
+    before = span.PATHS["two_pass"][0]
+    for bits in (8, 4):
+        q, s = span.span_pack(x, bits)
+        rq, rs = ref.span_pack_ref(x, bits)
+        err["span_pack"] = max(err["span_pack"], abs_err(q, rq),
+                               abs_err(s, rs))
+        nq, ns = encode_rows(xn, bits)
+        if not (torch.equal(q, rq) and bits_equal(s, rs)
+                and np.array_equal(q.cpu().numpy(), nq) and np.array_equal(
+                    s.cpu().numpy().view(np.int32), ns.view(np.int32))):
+            fail(f"K5 int{bits} on a 1x{wide} row (two-pass path)")
+        n_checks += 2
+    if span.PATHS["two_pass"][0] != before + 2:
+        fail(f"a 1x{wide} row did not take K5's two-pass path")
+    log(f"[span] a 1x{wide} row (> grid {grid} x {cap} f32): two-pass "
+        f"path, int8 and int4 bitwise equal to plain and encode_rows")
     log(f"[span] edge cases: {n_checks} kernel/plain (or kernel/numpy) "
         f"comparisons bitwise equal")
 
@@ -718,11 +749,23 @@ def phase_span(cfg, dev, reps: int = REPS):
     from repro_torch.kernels import ref, span
     err = {k: 0.0 for k in ("span_pack", "quant_span_decode",
                             "quant_span_apply")}
+    span.reset_paths()
     _span_edge_cases(dev, err)
     shapes = [(s[0], math.prod(s[1:])) for s in _leaf_shapes(cfg)]
     n_all = sum(r * c for r, c in shapes)
     rows_all = sum(r for r, _ in shapes)
     log(f"[span] gpt2-l leaves as row blocks: {shapes}")
+    grid, cap = span.pack_limits(dev)[:2]
+    for r, c in sorted(set(shapes)):
+        p = span.pack_plan(r, c, grid, cap)
+        log(f"[span] K5 plan {r}x{c}: " + (
+            f"two_pass (a row is wider than {grid} x {cap} f32)"
+            if p.path == "two_pass" else
+            f"one_pass grid={p.grid} "
+            + (f"{p.rows} rows of {c} f32 per segment, one row to a warp"
+               if p.warp_rows else
+               f"{p.parts} part(s) of {p.width} f32 per row")
+            + f", {p.segments} segments, {p.waves} waves"))
     g = torch.Generator(device=dev).manual_seed(1)
     xs = [torch.randn(s, generator=g, device=dev) for s in shapes]
     for x in xs:
@@ -776,24 +819,57 @@ def phase_span(cfg, dev, reps: int = REPS):
         f"{numpy_elems} elements (a row slice of every leaf, both widths)")
     from repro_torch.kernels import build
     parity_launches = dict(build.LAUNCHES)
+    log(f"[paths] span_pack phase A checks: {_fmt_span_paths()}")
 
     res = {}
     packed = [span.span_pack(x, 8) for x in xs]
+    span.reset_paths()
+    # no single PyTorch call computes K5 (per-row absmax, division,
+    # rounding, clipping, nibble packing): library_ms stays None
     res["span_pack"] = dict(
         ms=timed(lambda: [span.span_pack(x, 8) for x in xs], reps),
         plain_ms=timed(lambda: [ref.span_pack_ref(x, 8) for x in xs],
                        max(1, reps // 5)),
         library_ms=None, bytes=5 * n_all + 4 * rows_all, ops=4 * n_all)
-    log(f"[span] K5 int4: kernel_ms="
-        f"{timed(lambda: [span.span_pack(x, 4) for x in xs], reps):.4f}")
+    log(f"[paths] span_pack timed set (int8, {reps + 1} passes): "
+        f"{_fmt_span_paths()}")
+    int4 = dict(ms=timed(lambda: [span.span_pack(x, 4) for x in xs], reps),
+                bytes=sum(r * (4 * c + (c + 1) // 2 + 4) for r, c in shapes),
+                ops=4 * n_all)
+    _bound(int4)
+    log(f"[timing] span_pack int4: kernel_ms={int4['ms']:.4f} "
+        f"bound_ms={int4['bound_ms']:.4f} ({int4['bytes'] / 1e9:.3f} GB, "
+        f"{100 * int4['bound_ms'] / int4['ms']:.1f}% of bound)")
+    for shp in sorted(set(shapes)):        # where K5's time goes
+        group = [x for x in xs if tuple(x.shape) == shp]
+        ms = timed(lambda: [span.span_pack(x, 8) for x in group], reps)
+        bound = 1e3 * len(group) * shp[0] * (5 * shp[1] + 4) / HBM_BYTES_PER_S
+        log(f"[span] K5 int8 {len(group)} x {shp[0]}x{shp[1]}: "
+            f"{ms:.4f} ms, bound {bound:.4f} ms "
+            f"({100 * bound / ms:.1f}% of bound)")
+    for shp in sorted(set(shapes)):        # the kernel's phases per wave
+        plan = span.pack_plan(shp[0], shp[1], grid, cap)
+        if plan.path == "one_pass":
+            x = next(x for x in xs if tuple(x.shape) == shp)
+            span.pack_phases(x, 8)
+            log(f"[span] K5 int8 phases {shp[0]}x{shp[1]}: "
+                + _fmt_phases(span.pack_phases(x, 8)[2].cpu(), plan.grid))
     del xs
+    # K6's yardstick: an int8 row block decodes with one call, q * scale
+    q0, s0 = packed[0]
+    if not bits_equal(torch.mul(q0, s0),
+                      span.quant_span_decode(q0, s0, q0.shape[1], 8)):
+        fail("torch.mul(q, scale) != K6 on an int8 leaf")
     res["quant_span_decode"] = dict(
         ms=timed(lambda: [span.quant_span_decode(q, s, q.shape[1], 8)
                           for q, s in packed], reps),
         plain_ms=timed(lambda: [ref.span_decode_ref(q, s, q.shape[1], 8)
                                 for q, s in packed], max(1, reps // 5)),
-        library_ms=None, bytes=5 * n_all + 4 * rows_all, ops=n_all)
-    # K7 over one int4 full-state patch: params int4, moments int8
+        library_ms=timed(lambda: [torch.mul(q, s) for q, s in packed],
+                         reps),
+        bytes=5 * n_all + 4 * rows_all, ops=n_all)
+    # K7 over one int4 full-state patch: params int4, moments int8 (no
+    # single PyTorch call decodes int4 nibbles: library_ms stays None)
     patch, dsts = [], []
     for (q8, s8), (r, c) in zip(packed, shapes):
         x = torch.randn((r, c), generator=g, device=dev)
@@ -822,9 +898,45 @@ def phase_span(cfg, dev, reps: int = REPS):
         _bound(r)
         log(f"[timing] {name}: kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"library_ms=None max_abs_err={r['max_abs_err']} "
+            f"library_ms={r['library_ms']} max_abs_err={r['max_abs_err']} "
             f"({r['bytes'] / 1e9:.3f} GB)")
     return res
+
+
+def _fmt_phases(t, grid: int) -> str:
+    """Means over a launch's waves (a wave: ``grid`` consecutive
+    segments, one per CTA) of the kernel's phase times (``pack_phases``
+    stamps, ns): the wave's span from its first start to its last end;
+    per segment the load (start to copies landed), the sync (to the
+    row's absmax) and the quantize (to the bytes written), each as the
+    mean over the wave's CTAs and the slowest one."""
+    t = t.double() / 1e3                            # us
+    waves = -(-t.shape[0] // grid)
+    pad = waves * grid - t.shape[0]
+    t = _pad_rows(t, pad).reshape(waves, grid, 4)
+    span_us = (t[..., 3].nan_to_num(-1e30).amax(1)
+               - t[..., 0].nan_to_num(1e30).amin(1)).mean()
+    out = [f"{waves} waves, {float(span_us):.2f} us a wave"]
+    for name, a, b in (("load", 0, 1), ("sync", 1, 2), ("quantize", 2, 3)):
+        d = t[..., b] - t[..., a]
+        mean = d.nanmean(1).mean()
+        slow = d.nan_to_num(-1e30).amax(1).mean()
+        out.append(f"{name} {float(mean):.2f} (slowest {float(slow):.2f})")
+    return "; ".join(out) + " us"
+
+
+def _pad_rows(t, pad: int):
+    import torch
+    if not pad:
+        return t
+    return torch.cat([t, torch.full((pad, 4), float("nan"),
+                                    dtype=t.dtype)])
+
+
+def _fmt_span_paths() -> str:
+    from repro_torch.kernels import span
+    return " ".join(f"{p}: rows={v[0]} elements={v[1]}"
+                    for p, v in span.PATHS.items())
 
 
 # ---------------------------------------------------------------- phase 3

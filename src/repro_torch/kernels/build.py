@@ -135,7 +135,10 @@ _SIGS = {
                "quant_apply_": [_VP] * 9 + [_LL, _VP]},
     "quant8": {"quantize_": [_VP] * 3 + [_LL, _VP],
                "dequantize_": [_VP] * 3 + [_LL, _VP]},
-    "span": {"span_pack": [_VP] * 4 + [_LL, _LL, _INT, _VP],
+    "span": {"span_pack_limits": [_VP],
+             "span_pack_one_pass": [_VP] * 4 + [_LL, _LL, _INT] + [_LL] * 4
+             + [_INT, _LL, _LL, _VP, _VP],
+             "span_pack_two_pass": [_VP] * 4 + [_LL, _LL, _INT, _VP],
              "span_decode": [_VP] * 3 + [_LL] * 3 + [_INT, _VP],
              "span_apply_": [_VP] * 3 + [_LL] * 4 + [_INT, _VP]},
 }
