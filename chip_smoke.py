@@ -36,10 +36,13 @@ A. hold K5-K7 (the int8/int4 row-span codec) against their plain
    and require the recovered params/opt to equal the trained ones bit
    for bit; recover again with the default parallel replay, within its
    reassociation tolerance, and report its time and peak device memory;
-   check that K1, K2 and K4 launched; after the flush, K1 is held to
-   its plain version and timed on the run's own error-feedback residual
-   (``[residual]``, launches not counted as the path's);
-4. three ``--strategy none`` (dense) steps, which launch K3;
+   check that K1, K2 and K4 launched; K4 and K2 are held to their
+   plain versions on the last step's own leaves and payload, and after
+   the flush K1 is held to its plain version and timed on the run's own
+   error-feedback residual (``[residual]``; launches of these checks
+   are not counted as the path's);
+4. three ``--strategy none`` (dense) steps, which launch K3; K3 is held
+   to its plain version on the last step's leaves;
 B. drive the LowDiff+ path: ``LowDiffPlus`` (incremental, row, int4
    with int8 moments) on full-width gpt2-l for 3 steps (one full, two
    quantized patches), flush; require software recovery == the replica
@@ -53,6 +56,21 @@ C. phase 3 with ``--compressor packed`` (K8, K9, K10) at the depth of a
    residual as K1 in phase 3;
 D. the same with ``--compressor quant8`` (K11, K12, K13; no error
    feedback);
+E. the paper's baselines on full-width gpt2-l, dense steps (K3), each
+   in its own checkpoint directory: FullSync and CheckFreq (interval 2,
+   steps 1-3) recover the step-2 state and Gemini (a host copy every
+   step) the step-3 state, bitwise; NaiveDC (rho 0.01, a full at step 3,
+   differentials 4 and 5; K1 compresses the 3-Psi delta, K2 decodes it
+   in recovery) recovers what the plain versions' decode and pairwise
+   merge give, bitwise, and prints its lossy gap; K1, K2 and K3 held
+   bitwise against their plain versions on the phase's own leaves; one
+   line per strategy (first and later step ms, ``ckpt_time``, bytes,
+   recovery ms), then the failure simulator fed the measured constants;
+F. gradient accumulation at full width: granite-3-8b (bf16 params,
+   grad_accum 2) cut to 4 layers through phase 3's path (f=4, b=2,
+   resumed at step 3; device replay bitwise, parallel replay within its
+   tolerance; K4 and K2 held on its bf16 leaves), and three dense steps
+   of full stablelm-1.6b (K3 held on its leaves);
 5. print the ``kernels`` JSON line, the card's name and power limit,
    and the result line.
 
@@ -66,6 +84,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -940,10 +959,11 @@ def _fmt_span_paths() -> str:
 
 
 # ---------------------------------------------------------------- phase 3
-def _small_reference_check(dev, compressor: str = "topk"):
-    """Reduced gpt2-l: one lowdiff step on the card (kernels) against the
-    same step on the CPU (plain versions), from the same params/batch.
-    The gradients round differently on the two devices, so a near-tie may
+def _small_reference_check(dev, compressor: str = "topk", cfg=None):
+    """``cfg``'s arch reduced, with its ``grad_accum`` kept (gpt2-l by
+    default): one lowdiff step on the card (kernels) against the same
+    step on the CPU (plain versions), from the same params/batch. The
+    gradients round differently on the two devices, so a near-tie may
     flip a top-k pick or an int8 code: >= 99.9% must agree."""
     import torch
     from repro_torch import tree_leaves
@@ -952,7 +972,8 @@ def _small_reference_check(dev, compressor: str = "topk"):
     from repro_torch.core.steps import init_state, make_train_step
     from repro_torch.data.synthetic import make_batch
     from repro_torch.models.registry import build_model
-    cfg = get_config("gpt2-l").reduced()
+    full = get_config("gpt2-l") if cfg is None else cfg
+    cfg = get_config(full.name).reduced().replace(grad_accum=full.grad_accum)
     model = build_model(cfg)
     cpu = init_state(model, 0, device="cpu")
     gpu = init_state(model, 0, device=dev, params={
@@ -976,8 +997,9 @@ def _small_reference_check(dev, compressor: str = "topk"):
         tot += same.numel()
     if agree < 0.999 * tot:
         fail(f"reduced {compressor} step: {what} agree {agree}/{tot}")
-    log(f"[reference] reduced gpt2-l {compressor} step card vs cpu: loss "
-        f"{lg:.6f} vs {lc:.6f}, {what} agree {agree}/{tot}")
+    log(f"[reference] reduced {cfg.name} (grad_accum {cfg.grad_accum}) "
+        f"{compressor} step card vs cpu: loss {lg:.6f} vs {lc:.6f}, {what} "
+        f"agree {agree}/{tot}")
 
 
 def _to(tree, dev):
@@ -985,12 +1007,17 @@ def _to(tree, dev):
     return tree_map(lambda t: t.to(dev), tree)
 
 
-def _replay_close(got, want) -> float:
+def _replay_close(got, want, n: int, lr: float = 1e-3) -> float:
     """Largest |got - want| / (atol + rtol |want|) over the elements of
     every leaf, with the CPU tests' tolerance for parallel replay (rtol
     1e-5, atol 1e-6 of the leaf's largest magnitude, at least 1e-6):
-    reassociated sums of the window's Adam steps. Integer leaves must be
-    equal (ratio 0, else inf)."""
+    reassociated sums of the window's Adam steps. A bf16 leaf (params of
+    a bf16 config) also rounds differently: serial replay rounds each of
+    the ``n`` steps to bf16, parallel replay rounds their sum once, each
+    rounding within half an ulp (<= 2^-8 of the value) at the largest
+    magnitude the chain reaches, at most the two ends plus n Adam steps
+    of <= 4 lr; so atol grows by (n + 1) 2^-8 (max(|got|, |want|) +
+    4 n lr). Integer leaves must be equal (ratio 0, else inf)."""
     import torch
     worst = 0.0
     for a, b in zip(got, want):
@@ -998,8 +1025,12 @@ def _replay_close(got, want) -> float:
             if not torch.equal(a, b):
                 return math.inf
             continue
+        bf16 = b.dtype == torch.bfloat16
         a, b = a.float(), b.float()
         atol = 1e-6 * max(1.0, float(b.abs().max()))
+        if bf16:
+            atol = atol + (n + 1) * 2.0 ** -8 * (
+                torch.maximum(a.abs(), b.abs()) + 4 * n * lr)
         worst = max(worst, float(((a - b).abs()
                                   / (atol + 1e-5 * b.abs())).max()))
     return worst
@@ -1055,13 +1086,17 @@ PATH_KERNELS = {"topk": ("topk_select", "topk_scatter", "topk_apply"),
 
 
 def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
-               steps: int = 20, start: int = 19, full_interval: int = 20):
-    """LowDiff with ``compressor`` on full-width gpt2-l, resumed at step
+               steps: int = 20, start: int = 19, full_interval: int = 20,
+               tag: str = ""):
+    """LowDiff with ``compressor`` on the model of ``cfg`` (full width;
+    gpt2-l in phases 3, C, D, granite in phase F), resumed at step
     ``start``: ``steps`` steps write a full at the first multiple of
     ``full_interval`` and the differentials after it; then fail, recover
     by device replay (bitwise) and by parallel replay (within the
     reassociation tolerance), and require the compressor's kernels to
-    have launched. Returns the launch counts of this run."""
+    have launched. With top-k, K4 and K2 are also held against their
+    plain versions on the last step's own leaves and payload. Returns (launch counts of this run, payload bytes of the
+    last step)."""
     import torch
     from repro_torch import tree_leaves
     from repro_torch.checkpoint.io import COPY_METER
@@ -1073,8 +1108,8 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
     from repro_torch.kernels import build
     from repro_torch.models.registry import build_model
     from repro_torch.obs.trace import TRACER
-    tag = "[main]" if compressor == "topk" else f"[{compressor}]"
-    _small_reference_check(dev, compressor)
+    tag = tag or ("[main]" if compressor == "topk" else f"[{compressor}]")
+    _small_reference_check(dev, compressor, cfg)
     shutil.rmtree(ckdir, ignore_errors=True)
     model = build_model(cfg)
     fail_at = start + steps
@@ -1095,12 +1130,14 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
     stream = TokenStream(cfg, 64, 4, seed=0, device=dev)
     torch.cuda.synchronize()
     build.reset_launches()
-    step_ms, losses, diff_bytes = [], [], []
+    step_ms, losses, diff_bytes, last = [], [], [], []
     orig_step = strat.step_fn
 
     def step_fn(st, b):             # records each step's payload size
         out = orig_step(st, b)
         diff_bytes.append(tree_nbytes(out[2]))
+        if compressor == "topk" and len(diff_bytes) == steps:
+            last[:] = [st, out[2]]  # and the last step's inputs
         return out
     strat.step_fn = step_fn
     for t in range(steps):
@@ -1116,6 +1153,9 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
         f"losses={[round(l, 5) for l in losses]}")
     log(f"{tag} differential bytes per step: {diff_bytes[-1]} "
         f"(dense f32 gradient {4 * model.n_params()})")
+    if last:
+        _lowdiff_kernel_checks(*last, state, tag)
+        del last[:]
     trained = [t.clone() for t in tree_leaves(state["params"])
                + tree_leaves(state["opt"])]
     t0 = time.perf_counter()
@@ -1173,7 +1213,7 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
         fail(f"parallel recovery: step {int(state['step'])}, applied "
              f"{applied}")
     ratio = _replay_close(tree_leaves(state["params"])
-                          + tree_leaves(state["opt"]), trained)
+                          + tree_leaves(state["opt"]), trained, applied)
     if not ratio <= 1.0:
         fail(f"parallel recovery differs from the trained state beyond "
              f"the reassociation tolerance (ratio {ratio})")
@@ -1192,11 +1232,14 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
     del state, trained, strat
     shutil.rmtree(ckdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, diff_bytes[-1]
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_dense(cfg, dev, steps: int = 3):
+def phase_dense(cfg, dev, steps: int = 3, tag: str = "[dense]"):
+    """``steps`` dense (``--strategy none``) steps, which launch K3, then
+    K3 held against its plain version on the last step's leaves.
+    Returns (launch counts, step ms)."""
     import torch
     from repro_torch.core.steps import init_state, make_train_step
     from repro_torch.data.synthetic import TokenStream
@@ -1210,7 +1253,7 @@ def phase_dense(cfg, dev, steps: int = 3):
     build.reset_launches()
     step_ms, losses = [], []
     for _ in range(steps):
-        b = next(stream)
+        b, prev = next(stream), state
         t0 = time.perf_counter()
         state, metrics, _ = step(state, b)
         torch.cuda.current_stream(dev).synchronize()
@@ -1221,11 +1264,13 @@ def phase_dense(cfg, dev, steps: int = 3):
         fail("--strategy none did not launch adam_tile_update")
     if not all(math.isfinite(l) for l in losses):
         fail(f"non-finite dense loss {losses}")
-    log(f"[dense] step_ms={[round(s, 3) for s in step_ms]} "
+    log(f"{tag} step_ms={[round(s, 3) for s in step_ms]} "
         f"losses={[round(l, 5) for l in losses]} launches={launches}")
     del state
+    _k3_check(model, prev, b, tag)
+    del prev
     torch.cuda.empty_cache()
-    return launches
+    return launches, step_ms
 
 
 # ---------------------------------------------------------------- phase B
@@ -1385,6 +1430,375 @@ def phase_lowdiff_plus(cfg, dev, ckdir: str, steps: int = 3):
     return launches
 
 
+# ---------------------------------------------------------------- phase E
+def _state_leaves(state):
+    from repro_torch import tree_leaves
+    return tree_leaves(state["params"]) + tree_leaves(state["opt"])
+
+
+def _same_state(got, want) -> bool:
+    """params, mu, nu and count bitwise equal, and the same step."""
+    a, b = _state_leaves(got), _state_leaves(want)
+    return (len(a) == len(b) and int(got["step"]) == int(want["step"])
+            and all(bits_equal(x, y) for x, y in zip(a, b)))
+
+
+def _naive_dc_plain_recover(store, dev):
+    """NaiveDC's recovery by the plain versions on the card: each
+    differential decoded by K2's plain version, the deltas merged by the
+    same pairwise plain adds, added to the full. Returns (params, mu, nu
+    leaves, count, step)."""
+    from repro_torch import tree_leaves
+    from repro_torch.compression.sparse import is_compressed
+    from repro_torch.core import recovery as rec
+    from repro_torch.kernels import ref
+    state, diffs = rec.load_latest_chain(store)
+    state = rec.to_device(state, dev)
+    payloads = [rec.to_device(p, dev) for _, p in diffs]
+
+    def apply(comp, leaves, add):
+        wires = [tree_leaves(p[comp], is_leaf=is_compressed)
+                 for p in payloads]
+        out = []
+        for j, x in enumerate(leaves):
+            deltas = [ref.topk_scatter_ref(w[j].values, w[j].indices,
+                                           w[j].block).reshape(-1)[
+                                               :x.numel()].reshape(x.shape)
+                      for w in wires]
+            out.append(add(x, rec.merge_deltas_pairwise(deltas)[0]))
+        return out
+    opt = state["opt"]
+    leaves = (apply("params", tree_leaves(state["params"]),
+                    lambda p, d: (p.float() + d).to(p.dtype))
+              + apply("mu", tree_leaves(opt.mu), lambda a, b: a + b)
+              + apply("nu", tree_leaves(opt.nu), lambda a, b: a + b))
+    return leaves, int(opt.count) + len(diffs), diffs[-1][0]
+
+
+def _baseline_kernel_checks(model, prev, state, batch, store, step: int):
+    """K1, K2 and K3 against their plain versions, bitwise, on phase E's
+    own leaves: K1 on the 3-Psi delta of NaiveDC's last step (its picks
+    also equal to the payload the path wrote), K2 on that payload, K3 on
+    the last step's params, gradient and moments (``_k3_check``). These
+    launches are measurement, not the path's: the counts are put back."""
+    import numpy as np
+    import torch
+    from repro_torch import tree_leaves
+    from repro_torch.compression.sparse import is_compressed, k_for
+    from repro_torch.kernels import build, ref, topk
+    from repro_torch.models.param import to_tensor
+    counts = dict(build.LAUNCHES)
+    k = k_for(0.01)
+    payload = dict(store.diffs_after(step - 1))[step]
+    pairs = {"params": (state["params"], prev["params"]),
+             "mu": (state["opt"].mu, prev["opt"].mu),
+             "nu": (state["opt"].nu, prev["opt"].nu)}
+    n = zero = 0
+    for comp, (new, old) in pairs.items():
+        wire = tree_leaves(payload[comp], is_leaf=is_compressed)
+        for a, b, sg in zip(tree_leaves(new), tree_leaves(old), wire):
+            d = a.float() - b.float()
+            got = topk.topk_select(d, k)
+            want = ref.topk_select_ref(ref.to_blocks(d, 1024)[0], k)
+            if not all(bits_equal(x, y) for x, y in zip(got, want)):
+                fail(f"K1 != plain version on the NaiveDC delta {comp} "
+                     f"{tuple(d.shape)}")
+            vals = to_tensor(sg.values, device=d.device)
+            idx = to_tensor(np.asarray(sg.indices, np.int32),
+                            device=d.device)
+            if not (bits_equal(got[0], vals) and bits_equal(got[1], idx)):
+                fail(f"K1 on the delta {comp} {tuple(d.shape)} != the "
+                     f"payload NaiveDC wrote")
+            dense = topk.topk_scatter(vals, idx, d.numel())
+            plain = ref.topk_scatter_ref(vals, idx, 1024).reshape(-1)[
+                :d.numel()]
+            if not bits_equal(dense, plain):
+                fail(f"K2 != plain version on the NaiveDC payload {comp} "
+                     f"{tuple(d.shape)}")
+            n += 1
+            zero += int((got[0] == 0).all(dim=1).sum())
+            del d, got, want, dense, plain
+    build.LAUNCHES.update(counts)
+    log(f"[base] K1, K2 on the 3-Psi delta of step {step} ({n} leaves, "
+        f"{zero} all-zero blocks): bitwise equal to their plain versions; "
+        f"K1's picks equal the payload on disk")
+    _k3_check(model, prev, batch, "[base]")
+
+
+def _k3_check(model, prev, batch, tag: str):
+    """K3 against its plain version, bitwise, on the leaves of a dense
+    step: the params and moments before it and the gradient of its batch
+    (recomputed). Measurement, not the path's: the counts are put back."""
+    import torch
+    from repro_torch import tree_leaves
+    from repro_torch.core.steps import _grads
+    from repro_torch.kernels import build, fused_adam, ops, ref
+    counts = dict(build.LAUNCHES)
+    _, _, grads = _grads(model, prev["params"], batch, model.cfg.grad_accum)
+    opt = prev["opt"]
+    hyper = ops.adam_hyper_traced(1e-3, 0.9, 0.999, 1e-8, opt.count + 1)
+    n = 0
+    for p, g, m, v in zip(tree_leaves(prev["params"]), tree_leaves(grads),
+                          tree_leaves(opt.mu), tree_leaves(opt.nu)):
+        got = fused_adam.adam_tile_update(p, g, m, v, hyper)
+        want = ref.adam_tile_update_ref(p, g, m, v, hyper)
+        if not all(bits_equal(x, y) for x, y in zip(got, want)):
+            fail(f"K3 != plain version on the leaf {tuple(p.shape)}")
+        n += 1
+        del got, want
+    build.LAUNCHES.update(counts)
+    log(f"{tag} K3 on the last step's {n} leaves ({model.cfg.param_dtype} "
+        f"params): bitwise equal to its plain version")
+    del grads
+    torch.cuda.empty_cache()
+
+
+def _lowdiff_kernel_checks(prev, payload, state, tag: str):
+    """K4 and K2 against their plain versions, bitwise, on the leaves of
+    a lowdiff top-k step: K4 on the params and moments before it and its
+    payload (the plain version's result also equal to the state the step
+    trained), K2 on that payload. Measurement, not the path's: the counts
+    are put back."""
+    import torch
+    from repro_torch import tree_leaves
+    from repro_torch.compression.sparse import is_compressed
+    from repro_torch.kernels import build, ops, ref, replay, topk
+    counts = dict(build.LAUNCHES)
+    opt, new = prev["opt"], state["opt"]
+    hyper = ops.adam_hyper_traced(1e-3, 0.9, 0.999, 1e-8, opt.count + 1)
+    n = 0
+    for sg, p, m, v, p2, m2, v2 in zip(
+            tree_leaves(payload, is_leaf=is_compressed),
+            tree_leaves(prev["params"]), tree_leaves(opt.mu),
+            tree_leaves(opt.nu), tree_leaves(state["params"]),
+            tree_leaves(new.mu), tree_leaves(new.nu)):
+        got = replay.topk_apply(sg.values, sg.indices, p, m, v, hyper)
+        want = tuple(ref.unblock(t, p.shape) for t in ref.topk_apply_ref(
+            sg.values, sg.indices, *(ref.to_blocks(t, 1024)[0]
+                                     for t in (p, m, v)), hyper, block=1024))
+        if not all(bits_equal(x, y) for x, y in zip(got, want)):
+            fail(f"{tag} K4 != plain version on the leaf {tuple(p.shape)} "
+                 f"({p.dtype})")
+        if not all(bits_equal(x, y) for x, y in zip(want, (p2, m2, v2))):
+            fail(f"{tag} K4's plain version != the trained state on the "
+                 f"leaf {tuple(p.shape)}")
+        dense = topk.topk_scatter(sg.values, sg.indices, p.numel())
+        plain = ref.topk_scatter_ref(sg.values, sg.indices, 1024).reshape(
+            -1)[:p.numel()]
+        if not bits_equal(dense, plain):
+            fail(f"{tag} K2 != plain version on the payload of the leaf "
+                 f"{tuple(p.shape)}")
+        n += 1
+        del got, want, dense, plain
+    build.LAUNCHES.update(counts)
+    log(f"{tag} K4 ({tree_leaves(prev['params'])[0].dtype} params) and K2 "
+        f"on the last step's {n} leaves and payload: bitwise equal to their "
+        f"plain versions, and the plain K4 equal to the trained state")
+    torch.cuda.empty_cache()
+
+
+#: phase E: strategy -> (knobs, steps, the step whose state recovers)
+BASELINES = (("full_sync", {"interval": 2}, 3, 2),
+             ("checkfreq", {"interval": 2}, 3, 2),
+             ("gemini", {"interval": 1, "persist_interval": 100}, 3, 3),
+             ("naive_dc", {"rho": 0.01, "full_interval": 3}, 5, 5))
+
+
+def phase_baselines(cfg, dev, ckdir: str, lowdiff_diff_bytes: int,
+                    dense_ms: float):
+    """Phase E: the paper's baselines (FullSync, CheckFreq, Gemini,
+    NaiveDC) on full-width, full-depth gpt2-l, batch 4 x seq 64, each in
+    its own checkpoint directory, deleted after its checks. FullSync and
+    CheckFreq (interval 2, steps 1-3) recover the step-2 state, Gemini
+    (every step into host memory) the step-3 state, bitwise; NaiveDC
+    (rho 0.01, a full at step 3, differentials 4 and 5) recovers the
+    state the plain versions' decode and merge give, bitwise, and its
+    lossy gap to the trained state is printed. Then one simulator line
+    from the measured constants. Returns the launch counts of the four
+    paths, summed."""
+    import torch
+    from repro_torch import tree_leaves
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.core import baselines
+    from repro_torch.core.simulator import paper_profiles, simulate
+    from repro_torch.core.steps import init_state
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs.trace import TRACER
+    classes = {"full_sync": baselines.FullSync,
+               "checkfreq": baselines.CheckFreq,
+               "gemini": baselines.Gemini, "naive_dc": baselines.NaiveDC}
+    model = build_model(cfg)
+    state_bytes = 12 * model.n_params()
+    log(f"[base] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{model.n_params()} params, dense state (params, mu, nu f32) "
+        f"{state_bytes} B; dense steps, batch 4 x seq 64")
+    total = {k: 0 for k in build.LAUNCHES}
+    measured = {}
+    for name, kw, steps, want_step in BASELINES:
+        root = os.path.join(ckdir, name)
+        shutil.rmtree(root, ignore_errors=True)
+        _release_pinned()
+        store = CheckpointStore(root)
+        strat = classes[name](model, store, lr=1e-3, device=dev, **kw)
+        state = init_state(model, 0, mode="dense", device=dev)
+        stream = TokenStream(cfg, 64, 4, seed=0, device=dev)
+        TRACER.clear()
+        TRACER.enable()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        step_ms, losses, kept, prev, batch = [], [], None, None, None
+        for _ in range(steps):
+            prev, batch = state, next(stream)
+            t0 = time.perf_counter()
+            state, metrics = strat.train_step(state, batch)
+            torch.cuda.current_stream(dev).synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            if int(state["step"]) == want_step:
+                kept = state        # replaced, never written, by later steps
+        if not all(math.isfinite(l) for l in losses):
+            fail(f"{name}: non-finite loss {losses}")
+        t0 = time.perf_counter()
+        strat.flush()
+        flush_s = time.perf_counter() - t0
+        if name != "naive_dc":
+            del prev
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got, applied = strat.recover()
+        torch.cuda.synchronize()
+        rec_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(build.LAUNCHES)
+        spans = {}
+        for sname, _, _, _, t0_, t1_, _ in TRACER.events():
+            spans.setdefault(sname, []).append((t1_ - t0_) * 1e3)
+        TRACER.disable()
+        stall = spans.get("ckpt.compress", [])
+        if name == "naive_dc":
+            leaves, count, step = _naive_dc_plain_recover(store, dev)
+            mine = _state_leaves(got)
+            if not (applied == 2 and int(got["step"]) == step == want_step
+                    and int(got["opt"].count) == count
+                    and all(bits_equal(a, b) for a, b in
+                            zip(mine[:-1], leaves))):
+                fail("naive_dc: recovered state != the plain versions' "
+                     "decode and merge of the same chain")
+            gaps = {}
+            for comp, a, b in (
+                    ("params", got["params"], state["params"]),
+                    ("mu", got["opt"].mu, state["opt"].mu),
+                    ("nu", got["opt"].nu, state["opt"].nu)):
+                gaps[comp] = max(abs_err(x, y) for x, y in
+                                 zip(tree_leaves(a), tree_leaves(b)))
+            log(f"[base] naive_dc: recovered at step {int(got['step'])} "
+                f"from the full at 3 + {applied} differentials, bitwise "
+                f"equal to the plain versions' K2 decode and pairwise "
+                f"merge; lossy gap to the trained state (not gated): "
+                f"max |recovered - trained| params {gaps['params']:.6g} "
+                f"mu {gaps['mu']:.6g} nu {gaps['nu']:.6g}")
+            del leaves
+            _baseline_kernel_checks(model, prev, state, batch, store, steps)
+            del prev
+            for k in ("topk_select", "topk_scatter"):
+                if launches[k] <= 0:
+                    fail(f"naive_dc did not launch {k}")
+        else:
+            if kept is None or not _same_state(got, kept):
+                fail(f"{name}: recovered state != the trained state at "
+                     f"step {want_step}")
+            log(f"[base] {name}: recovered at step {int(got['step'])}, "
+                f"bitwise equal to the trained state of that step")
+        if launches["adam_tile_update"] <= 0:
+            fail(f"{name} did not launch adam_tile_update")
+        for k, v in launches.items():
+            total[k] += v
+        d2h = spans.get("snapshot.d2h", [])
+        saves = spans.get("store.save_full", [])
+        log(f"[base] {name}: step_ms first={step_ms[0]:.3f} "
+            f"median_rest={statistics.median(step_ms[1:]):.3f} "
+            f"all={[round(t, 3) for t in step_ms]} "
+            f"ckpt_time_s={strat.ckpt_time:.3f} flush_s={flush_s:.3f} "
+            f"bytes_written={store.bytes_written} "
+            f"recovery_ms={rec_ms:.1f} "
+            f"save_full_ms={[round(t, 1) for t in saves]} "
+            f"snapshot_d2h_ms={[round(t, 1) for t in d2h]} "
+            + (f"compress_stall_ms={[round(t, 3) for t in stall]} "
+               if stall else "")
+            + f"losses={[round(l, 5) for l in losses]} launches="
+            f"{ {k: v for k, v in launches.items() if v} }")
+        measured[name] = {"spans": spans, "stall": stall,
+                          "full_bytes": (store.manifest["fulls"][0]["bytes"]
+                                         if store.manifest["fulls"] else 0)}
+        strat.close()
+        del state, got, kept, strat, batch
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    _release_pinned()
+
+    # the failure simulator, fed this run's constants
+    full_bytes = measured["full_sync"]["full_bytes"]
+    write_s = measured["full_sync"]["spans"]["store.save_full"][0] / 1e3
+    d2h_s = measured["gemini"]["spans"]["snapshot.d2h"][-1] / 1e3
+    stall_s = statistics.median(measured["naive_dc"]["stall"]) / 1e3
+    consts = dict(iter_time=dense_ms / 1e3, full_bytes=full_bytes,
+                  diff_bytes=lowdiff_diff_bytes, write_bw=full_bytes / write_s,
+                  d2h_bw=state_bytes / d2h_s, compress_stall=stall_s / 3)
+    ratios = {}
+    for pname, prof in paper_profiles(**consts).items():
+        ratios[pname] = [
+            round(statistics.mean(simulate(prof, run_iters=20000,
+                                           mtbf_s=3600 * h, seed=sd)
+                                  .effective_ratio for sd in range(3)), 6)
+            for h in (0.5, 1, 2)]
+    log(f"[sim] paper_profiles from this run: iter_time="
+        f"{consts['iter_time']:.4f} s (phase 4 dense step), "
+        f"full_bytes={full_bytes} (full_sync), "
+        f"write_bw={consts['write_bw']:.4g} B/s (its save_full), "
+        f"d2h_bw={consts['d2h_bw']:.4g} B/s (gemini's last copy), "
+        f"compress_stall={consts['compress_stall']:.4g} s per Psi "
+        f"(naive_dc's 3-Psi stall / 3), diff_bytes={lowdiff_diff_bytes} "
+        f"(phase 3's top-k payload); effective_ratio at MTBF 0.5/1/2 h "
+        f"(20000 iterations, mean of seeds 0-2): {ratios}")
+    return total
+
+
+# ---------------------------------------------------------------- phase F
+def phase_accum(dev, ckdir: str):
+    """Phase F: gradient accumulation and the other dense configs at full
+    width. granite-3-8b (d 4096, 32 H / 8 KV, d_ff 12800, vocab 49155,
+    bf16 params, grad_accum 2) cut in depth to 4 of its 40 layers (all
+    40 need ~8.4 B parameters, over 110 GB with f32 moments and the f32
+    EF residual) goes through ``phase_main`` as phases C and D do, with
+    K4 and K2 held against their plain versions on its last step as in
+    phase 3; stablelm-1.6b at full width and depth takes three dense
+    steps through ``phase_dense``, K3 held as in phase 4.
+    Returns (granite's launch counts, stablelm's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import DTYPES
+    from repro_torch.models.registry import build_model
+    g = get_config("granite-3-8b")
+    g = g.replace(n_layers=4)
+    n = build_model(g).n_params()
+    pbytes = DTYPES[g.param_dtype].itemsize
+    log(f"[granite] {g.name} cut in depth to {g.n_layers} of 40 layers: "
+        f"d={g.d_model}, {g.n_heads} H / {g.n_kv_heads} KV, d_ff {g.d_ff}, "
+        f"vocab {g.vocab}, {g.param_dtype} params, grad_accum "
+        f"{g.grad_accum} ({g.grad_accum_dtype}); {n} params, lowdiff "
+        f"state (params, f32 mu, nu, EF) {n * (pbytes + 12)} B")
+    lg, _ = phase_main(g, dev, ckdir, "topk", steps=4, start=3,
+                       full_interval=4, tag="[granite]")
+    s = get_config("stablelm-1.6b")
+    n = build_model(s).n_params()
+    log(f"[stablelm] {s.name} at full width and depth: {s.n_layers} "
+        f"layers, d={s.d_model}, {s.n_heads} H / {s.n_kv_heads} KV, d_ff "
+        f"{s.d_ff}, vocab {s.vocab}, {s.param_dtype} params; {n} params, "
+        f"dense state {n * 12} B; 3 dense steps, batch 4 x seq 64")
+    ls, _ = phase_dense(s, dev, tag="[stablelm]")
+    return lg, ls
+
+
 # ---------------------------------------------------------------- profile
 def phase_profile(cfg, dev, steps: int = 2):
     """``--profile``: torch.profiler over warm lowdiff and dense steps
@@ -1509,20 +1923,33 @@ def main() -> int:
     launches.update({k: res[k]["parity_launches"]
                      for k in ("span_pack", "quant_span_decode")})
     if args.only == "all":
-        launches.update({k: v for k, v in phase_main(
-            cfg, dev, args.ckpt_dir).items() if k in PATH_KERNELS["topk"]})
-        launches["adam_tile_update"] = phase_dense(cfg, dev)[
-            "adam_tile_update"]
+        got, diff_bytes = phase_main(cfg, dev, args.ckpt_dir)
+        launches.update({k: v for k, v in got.items()
+                         if k in PATH_KERNELS["topk"]})
+        got, dense_ms = phase_dense(cfg, dev)
+        launches["adam_tile_update"] = got["adam_tile_update"]
         log(f"[time] + phases 3, 4: {time.perf_counter() - t_all:.1f} s")
         launches["quant_span_apply"] = phase_lowdiff_plus(
             cfg, dev, args.ckpt_dir)["quant_span_apply"]
         log(f"[time] + phase B: {time.perf_counter() - t_all:.1f} s")
         _release_pinned()
         for phase, comp in (("C", "packed"), ("D", "quant8")):
-            launches.update({k: v for k, v in phase_main(
-                cfg, dev, args.ckpt_dir, comp, steps=4, start=3,
-                full_interval=4).items() if k in PATH_KERNELS[comp]})
+            got, _ = phase_main(cfg, dev, args.ckpt_dir, comp, steps=4,
+                                start=3, full_interval=4)
+            launches.update({k: v for k, v in got.items()
+                             if k in PATH_KERNELS[comp]})
             log(f"[time] + phase {phase}: {time.perf_counter() - t_all:.1f} s")
+        # K1-K4 also run on the paths of phases E and F: their counts add
+        got = phase_baselines(cfg, dev, args.ckpt_dir, diff_bytes,
+                              statistics.median(dense_ms[1:]))
+        for k in ("topk_select", "topk_scatter", "adam_tile_update"):
+            launches[k] += got[k]
+        log(f"[time] + phase E: {time.perf_counter() - t_all:.1f} s")
+        granite, stablelm = phase_accum(dev, args.ckpt_dir)
+        for k in PATH_KERNELS["topk"]:
+            launches[k] += granite[k]
+        launches["adam_tile_update"] += stablelm["adam_tile_update"]
+        log(f"[time] + phase F: {time.perf_counter() - t_all:.1f} s")
     if args.profile:
         phase_profile(cfg, dev)
     kernels = []

@@ -87,6 +87,12 @@ def is_compressed(x) -> bool:
 
 # ------------------------- tree-level API --------------------------------
 
+def compress_tree(grads, rho: float):
+    """Per-leaf :func:`topk_compress` (K1 on the card): a tree of
+    ``SparseGrad`` in the input's tree order."""
+    return tree_map(lambda g: topk_compress(g, rho), grads)
+
+
 def decompress_tree(cg):
     """Dense gradients of a compressed tree (each container's decode)."""
     return tree_map(lambda l: l.dense() if is_compressed(l) else l, cg,

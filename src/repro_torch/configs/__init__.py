@@ -9,6 +9,9 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig, INPUT_SHAPES  # no
 # arch-id -> module name
 _REGISTRY = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "granite-3-8b": "granite_3_8b",
+    "llama3-405b": "llama3_405b",
     "gpt2-l": "gpt2_l",
 }
 

@@ -1,6 +1,6 @@
-"""Engine configuration + factory (port of ``repro.core.engine``, the
-subset for ``--strategy lowdiff|lowdiff_plus|none`` over the local
-backend).
+"""Engine configuration + factory (port of ``repro.core.engine``): every
+strategy of the reference — LowDiff, LowDiff+ and the paper's baselines
+(CheckFreq, Gemini, NaiveDC, FullSync) — over the local backend.
 
 :data:`FLAG_MAP` maps every launcher flag that configures the engine or
 the store to its config field; :meth:`EngineConfig.from_args` is the one
@@ -15,7 +15,8 @@ from repro_torch.checkpoint.backends import BACKENDS, make_backend
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core.steps import COMPRESSORS
 
-STRATEGIES = ("none", "lowdiff", "lowdiff_plus")
+STRATEGIES = ("none", "lowdiff", "lowdiff_plus", "checkfreq", "gemini",
+              "naive_dc", "full_sync")
 
 #: argparse dest -> (scope, field); scopes "engine" and "store"
 FLAG_MAP: Dict[str, tuple] = {
@@ -131,6 +132,20 @@ def make_engine(cfg: EngineConfig, model, store=None):
         return None
     if store is None:
         store = cfg.build_store()
+    from repro_torch.core.baselines import (CheckFreq, FullSync, Gemini,
+                                            NaiveDC)
+    if cfg.strategy == "checkfreq":
+        return CheckFreq(model, store, lr=cfg.lr, interval=10,
+                         device=cfg.device)
+    if cfg.strategy == "gemini":
+        return Gemini(model, store, lr=cfg.lr, interval=1,
+                      persist_interval=cfg.full_interval, device=cfg.device)
+    if cfg.strategy == "naive_dc":
+        return NaiveDC(model, store, lr=cfg.lr, rho=cfg.rho,
+                       full_interval=cfg.full_interval, device=cfg.device)
+    if cfg.strategy == "full_sync":
+        return FullSync(model, store, lr=cfg.lr, interval=cfg.full_interval,
+                        device=cfg.device)
     if cfg.strategy == "lowdiff_plus":
         from repro_torch.core.lowdiff_plus import LowDiffPlus
         return LowDiffPlus(model, store, lr=cfg.lr,

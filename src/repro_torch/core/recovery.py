@@ -19,6 +19,9 @@ each other bit for bit.
   ops, one bounded chunk of each leaf at a time — equal to serial replay
   up to float reassociation.
 
+:func:`merge_deltas_pairwise` sums NaiveDC's state deltas in the
+paper's pairwise tree order.
+
 :func:`load_state_device` is the hardware-recovery twin of
 ``CheckpointStore.load_latest_state`` that overlays quantized row-span
 patches on the card with ``quant_span_apply`` (K7).
@@ -85,6 +88,24 @@ def to_device(tree, device):
     """Host (or device) tree -> tensors on ``device``; compressed
     payloads (top-k, packed, quant8) keep their container."""
     return tree_map(lambda a: to_tensor(a, device=device), tree)
+
+
+def merge_deltas_pairwise(deltas: List[Any]) -> Tuple[Any, int]:
+    """The paper's pairwise tree merge of *state-delta* differentials
+    (Naive DC): log2(n) rounds of pairwise sums, pairing as the
+    reference does ((0, 1), (2, 3), ..., an odd last one carried up), so
+    the sums round alike. Works on trees or single tensors. Returns
+    (merged, rounds)."""
+    deltas = list(deltas)
+    rounds = 0
+    while len(deltas) > 1:
+        nxt = [tree_map(lambda a, b: a + b, deltas[i], deltas[i + 1])
+               for i in range(0, len(deltas) - 1, 2)]
+        if len(deltas) % 2:
+            nxt.append(deltas[-1])
+        deltas = nxt
+        rounds += 1
+    return deltas[0], rounds
 
 
 def _payload_nbytes(payload) -> int:

@@ -26,6 +26,10 @@ Modes:
 The state is a dict of device tensors — {"params", "opt": AdamState,
 "step", ["ef"]} — replaced, not updated in place, every step: a
 snapshot of step t reads tensors no later step writes.
+
+Gradient accumulation (``cfg.grad_accum``) runs the micro-batches inside
+the step, as the reference's scan does: the accumulated gradient is what
+every mode compresses, applies and checkpoints.
 """
 from __future__ import annotations
 
@@ -33,10 +37,11 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch import resolve_device, tree_map
+from repro_torch import resolve_device, tree_leaves, tree_map
 from repro_torch.compression.error_feedback import (ef_compress_tree_with,
                                                    ef_init)
 from repro_torch.compression.sparse import is_compressed
+from repro_torch.configs.base import DTYPES
 from repro_torch.kernels import ops
 from repro_torch.optim.adam import AdamState, adam_init
 
@@ -97,21 +102,49 @@ def _differentiable(params):
     return tree, leaves, regroup
 
 
+def _micro(batch, accum: int, i: int):
+    """Micro-batch ``i`` of ``accum``: contiguous rows along axis 0, as
+    the reference's ``x.reshape((accum, -1) + x.shape[1:])[i]``."""
+    return {k: (x.reshape((accum, -1) + tuple(x.shape[1:]))[i]
+                if x.dim() >= 1 else x) for k, x in batch.items()}
+
+
 def _grads(model, params, batch, accum: int):
-    """(loss, metrics, grads) with grads in the params' tree and dtypes."""
+    """(loss, metrics, grads) in the params' tree. One batch: grads in
+    the params' dtypes. ``accum`` > 1 (``cfg.grad_accum``): the batch is
+    split into ``accum`` contiguous micro-batches, whose gradients are
+    added in order into a ``cfg.grad_accum_dtype`` buffer and divided by
+    ``accum`` in that dtype; the loss is their f32 mean, and the metrics
+    are the reference's ``{"xent", "aux": 0, "tokens": 0}``."""
     live, leaves, regroup = _differentiable(params)
 
     def one(b):
         loss, metrics = model.loss_fn(live, b)
         return loss, metrics, regroup(torch.autograd.grad(loss, leaves))
 
-    if accum > 1:
-        raise NotImplementedError(
-            "gradient accumulation (grad_accum > 1) is not ported")
-    loss, metrics, gl = one(batch)
-    git = iter(gl)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, tree_map(lambda _: next(git), params)
+    def as_tree(gl):
+        git = iter(gl)
+        return tree_map(lambda _: next(git), params)
+
+    if accum <= 1:
+        loss, metrics, gl = one(batch)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, as_tree(gl)
+    acc_dt = DTYPES[model.cfg.grad_accum_dtype]
+    dev = tree_leaves(params)[0].device
+    acc = [torch.zeros(p.shape, dtype=acc_dt, device=dev)
+           for p in tree_leaves(params)]
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(accum):
+        loss, _, gl = one(_micro(batch, accum, i))
+        for a, g in zip(acc, gl):
+            a.add_(g.to(acc_dt))
+        loss_sum = loss_sum + loss.detach()
+        del gl
+    loss = loss_sum / accum
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return loss, {"xent": loss, "aux": zero, "tokens": zero}, \
+        as_tree([a.div_(accum) for a in acc])
 
 
 def _apply_tree(params, payloads, opt: AdamState, hyper, count):

@@ -1,12 +1,14 @@
 """End-to-end training driver (port of ``repro.launch.train``).
 
-Runs a training loop on synthetic data with LowDiff or LowDiff+ attached
-(or the bare dense step with ``--strategy none``), reports per-step
-times, and supports failure injection + recovery (LowDiff+ recovers
-from its host replica, as the reference does). Runs on the card unless
-``--device cpu`` is given; with no card and no ``--device cpu`` it
-raises instead of running. The flags keep the reference's names and
-defaults; values that are not ported are refused by ``choices``.
+Runs a training loop on synthetic data with LowDiff, LowDiff+ or one of
+the paper's baselines (``checkfreq``, ``gemini``, ``naive_dc``,
+``full_sync``; dense steps) attached, or the bare dense step with
+``--strategy none``; reports per-step times, and supports failure
+injection + recovery (LowDiff+ recovers from its host replica, as the
+reference does). Runs on the card unless ``--device cpu`` is given;
+with no card and no ``--device cpu`` it raises instead of running. The
+flags keep the reference's names and defaults; values that are not
+ported are refused by ``choices``.
 
 Examples::
 
@@ -18,8 +20,11 @@ Examples::
         --arch gpt2-l --reduced --strategy lowdiff_plus \\
         --persist-mode incremental --dirty-granularity row \\
         --diff-quant int4 --steps 8 --fail-at 6
-    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-        --arch gpt2-l --reduced --compressor packed --steps 8 \
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch gpt2-l --reduced --compressor packed --steps 8 \\
+        --full-interval 4 --fail-at 7
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch gpt2-l --reduced --strategy naive_dc --steps 8 \\
         --full-interval 4 --fail-at 7
 """
 from __future__ import annotations

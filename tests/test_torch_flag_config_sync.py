@@ -7,9 +7,10 @@ import dataclasses
 
 import pytest
 
+from repro.core.engine import STRATEGIES as REFERENCE_STRATEGIES
 from repro.launch.train import build_parser as reference_parser
-from repro_torch.core.engine import (FLAG_MAP, RUNTIME_FLAGS, ConfigError,
-                                     EngineConfig)
+from repro_torch.core.engine import (FLAG_MAP, RUNTIME_FLAGS, STRATEGIES,
+                                     ConfigError, EngineConfig)
 from repro_torch.launch.train import build_parser
 
 FIELDS = {f.name: f for f in dataclasses.fields(EngineConfig)}
@@ -65,3 +66,36 @@ def test_lowdiff_plus_flags_reach_the_engine():
                                         "row", "int4", 0.5, 3, 2.0)
     with pytest.raises(ConfigError, match="diff_quant"):
         dataclasses.replace(cfg, diff_quant="int2").validate()
+
+
+def test_strategies_match_the_reference():
+    """Every checkpointing strategy of the reference, the paper's
+    baselines included, is a ``--strategy`` choice of the port."""
+    assert STRATEGIES == REFERENCE_STRATEGIES
+    mine = _actions(build_parser())["strategy"]
+    ref = _actions(reference_parser())["strategy"]
+    assert tuple(mine.choices) == tuple(ref.choices) == STRATEGIES
+    assert mine.default == ref.default
+
+
+@pytest.mark.parametrize("strategy,interval", [
+    ("checkfreq", 10), ("gemini", 1), ("naive_dc", 1), ("full_sync", 6)])
+def test_baselines_take_the_reference_knobs(tmp_path, strategy, interval):
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import make_engine
+    from repro_torch.models.registry import build_model
+    args = build_parser().parse_args(
+        ["--strategy", strategy, "--full-interval", "6", "--rho", "0.05",
+         "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    strat = make_engine(EngineConfig.from_args(args),
+                        build_model(get_config("gpt2-l").reduced()))
+    try:
+        assert strat.name == strategy
+        assert strat.interval == interval
+        assert strat.device.type == "cpu"
+        if strategy == "gemini":
+            assert strat.persist_interval == 6
+        if strategy == "naive_dc":
+            assert (strat.rho, strat.full_interval) == (0.05, 6)
+    finally:
+        strat.close()
