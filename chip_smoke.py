@@ -71,6 +71,18 @@ F. gradient accumulation at full width: granite-3-8b (bf16 params,
    resumed at step 3; device replay bitwise, parallel replay within its
    tolerance; K4 and K2 held on its bf16 leaves), and three dense steps
    of full stablelm-1.6b (K3 held on its leaves);
+G. the storage tiers: LowDiff top-k + EF (K1, K2, K4) through stores
+   that ``StoreConfig.build()`` makes as ``--backend``/``--format`` make
+   them, each recovered by device replay bitwise equal to the trained
+   state: G1 the RAM tier (20,480 MB: above one gpt2-l full, below two)
+   over local frames on full gpt2-l, f=2 b=2 resumed at step 1 (full 2,
+   diff 3, full 4, diff 5), the older full written back and then
+   evicted, recovery from RAM and again after close() through a
+   local-only store; G2 4 shards, G3 a remote ``file://`` bucket in 4
+   MiB chunks under its RAM tier (recovered again from the bucket
+   alone), G4 local npz, each on gpt2-l cut to 4 layers through phase
+   C's chain; one ``[tier]`` line per stack (full put ms, write-back and
+   flush ms, bytes, evictions, chunks, retries, recovery ms, peak RSS);
 5. print the ``kernels`` JSON line, the card's name and power limit,
    and the result line.
 
@@ -1099,8 +1111,8 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
     last step)."""
     import torch
     from repro_torch import tree_leaves
+    from repro_torch.checkpoint.config import StoreConfig
     from repro_torch.checkpoint.io import COPY_METER
-    from repro_torch.checkpoint.store import CheckpointStore
     from repro_torch.compression.sparse import tree_nbytes
     from repro_torch.core.lowdiff import LowDiff
     from repro_torch.core.steps import init_state
@@ -1120,7 +1132,7 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
         f"replay then parallel replay")
     TRACER.clear()
     TRACER.enable()
-    store = CheckpointStore(ckdir)
+    store = StoreConfig(ckdir).build()
     strat = LowDiff(model, store, rho=0.01, lr=1e-3,
                     full_interval=full_interval, batch_size=2,
                     compressor=compressor, replay_device=True, device=dev,
@@ -1799,6 +1811,241 @@ def phase_accum(dev, ckdir: str):
     return lg, ls
 
 
+# ---------------------------------------------------------------- phase G
+class _RssPeak:
+    """Peak resident set of this process while the ``with`` block runs,
+    sampled every 20 ms from ``/proc/self/statm`` (``peak`` stays None
+    where that file cannot be read), beside ``ru_maxrss``, the peak
+    since the process began."""
+
+    def __enter__(self):
+        import threading
+        self.peak, self._stop = None, threading.Event()
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while True:
+            try:
+                with open("/proc/self/statm") as f:
+                    rss = int(f.read().split()[1]) * self._page
+            except (OSError, ValueError, IndexError):
+                return
+            self.peak = max(self.peak or 0, rss)
+            if self._stop.wait(0.02):
+                return
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+    def line(self) -> str:
+        import resource
+        ever = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        peak = "not measured" if self.peak is None else self.peak
+        return (f"peak_rss={peak} B (ru_maxrss since the process began "
+                f"{ever} B)")
+
+
+def _tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs)
+
+
+def _tier_chain(cfg, dev, store_cfg, tag: str, *, steps: int, start: int,
+                full_interval: int, reopen=None, evict: bool = False):
+    """One tier stack of phase G: LowDiff top-k + EF (K1, K2, K4) on
+    ``cfg`` through the store ``store_cfg.build()`` gives, resumed at
+    ``start`` for ``steps`` steps (a full at each multiple of
+    ``full_interval``, differentials between); flush, then device-replay
+    recovery through the same stack, bitwise equal to the trained
+    params/opt. ``evict``: the RAM tier must have evicted every older
+    full, each after its write-back landed, and recovery must find the
+    newest chain resident. ``reopen()``, after close(), builds a store
+    over the cold tier alone on the same root, through which a second
+    recovery must be bitwise too. Prints one ``[tier]`` line; returns
+    the run's launch counts."""
+    root = store_cfg.root
+    shutil.rmtree(root, ignore_errors=True)
+    _release_pinned()
+    with _RssPeak() as rss:
+        launches = _tier_run(cfg, dev, store_cfg, tag, rss, steps=steps,
+                             start=start, full_interval=full_interval,
+                             reopen=reopen, evict=evict)
+    shutil.rmtree(root, ignore_errors=True)
+    _release_pinned()
+    return launches
+
+
+def _tier_run(cfg, dev, store_cfg, tag, rss, *, steps, start,
+              full_interval, reopen, evict):
+    import torch
+    from repro_torch import tree_leaves
+    from repro_torch.core.lowdiff import LowDiff
+    from repro_torch.core.steps import init_state
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs.trace import TRACER
+    root = store_cfg.root
+    model = build_model(cfg)
+    fail_at = start + steps
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{model.n_params()} params; store {store_cfg.to_dict()}; LowDiff "
+        f"topk rho=0.01 + EF, f={full_interval}, b=2, steps "
+        f"{start + 1}..{fail_at}, device replay")
+    TRACER.clear()
+    TRACER.enable()
+    store = store_cfg.build()
+    mk = lambda st: LowDiff(model, st, rho=0.01, lr=1e-3,  # noqa: E731
+                            full_interval=full_interval, batch_size=2,
+                            replay_device=True, device=dev,
+                            flush_timeout=3600.0)
+    strat = mk(store)
+    state = init_state(model, 0, device=dev)
+    state["step"] = torch.tensor(start, dtype=torch.int32, device=dev)
+    stream = TokenStream(cfg, 64, 4, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    step_ms, losses = [], []
+    for _ in range(steps):
+        batch = next(stream)
+        t0 = time.perf_counter()
+        state, metrics = strat.train_step(state, batch)
+        torch.cuda.current_stream(dev).synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    if not all(math.isfinite(l) for l in losses):
+        fail(f"{tag} non-finite loss {losses}")
+    trained = [t.clone() for t in tree_leaves(state["params"])
+               + tree_leaves(state["opt"])]
+    t0 = time.perf_counter()
+    strat.flush()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    tiers = [store.backend]
+    while getattr(tiers[-1], "lower", None) is not None:
+        tiers.append(tiers[-1].lower)
+    ram = tiers[0] if tiers[0].name == "memory" else None
+    fulls = sorted(e["key"] for e in store.manifest["fulls"])
+    if ram is not None:
+        with ram._lock:
+            resident = set(ram._mem)
+        if fulls[-1] not in resident:
+            fail(f"{tag} the newest full {fulls[-1]} is not resident")
+        if evict and (ram.evictions < 1 or any(
+                k in resident or not ram.lower.exists(k)
+                for k in fulls[:-1])):
+            fail(f"{tag} an older full of {fulls} is still resident or was "
+                 f"not written back ({ram.stats()})")
+
+    def recover(st, what: str) -> float:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got, applied = st.recover()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        leaves = tree_leaves(got["params"]) + tree_leaves(got["opt"])
+        want = fail_at - fail_at // full_interval * full_interval
+        if int(got["step"]) != fail_at or applied != want:
+            fail(f"{tag} recovery {what}: step {int(got['step'])}, applied "
+                 f"{applied} (expected {fail_at}, {want})")
+        if len(leaves) != len(trained) or not all(
+                bits_equal(a, b) for a, b in zip(trained, leaves)):
+            fail(f"{tag} recovery {what}: params/opt differ from the "
+                 f"trained state")
+        log(f"{tag} recovered at step {fail_at} {what}: {applied} "
+            f"differentials replayed; params+opt bitwise equal to the "
+            f"trained state ({len(leaves)} leaves)")
+        return ms
+
+    del state
+    rec_ms = recover(strat, f"through {'+'.join(t.name for t in tiers)}")
+    spans = [(n, a or {}, (t1 - t0) * 1e3)
+             for n, _, _, _, t0, t1, a in TRACER.events()]
+    TRACER.disable()
+    put_ms = [round(ms, 1) for n, a, ms in spans
+              if n == "store.save_full"]
+    wb_ms = [round(ms, 1) for n, a, ms in spans
+             if n == "backend.put" and a.get("tier") == tiers[-1].name
+             and str(a.get("key", "")).startswith("full_")] \
+        if ram is not None else []
+    cold = tiers[-1].stats()
+    chunks = (sum(n.endswith(".chunk") for n in tiers[-1].store.list_objects())
+              if tiers[-1].name == "remote" else 0)
+    st = ram.stats() if ram is not None else {}
+    written = store.bytes_written
+    strat.close()
+    stored = _tree_bytes(root)
+    reopened_ms = None
+    if reopen is not None:
+        strat = mk(reopen())
+        reopened_ms = recover(strat, f"after close(), through "
+                                     f"{strat.store.backend.name} alone")
+        strat.close()
+    launches = dict(build.LAUNCHES)
+    for k in PATH_KERNELS["topk"]:
+        if launches[k] <= 0:
+            fail(f"{tag} did not launch {k}")
+    log(f"[tier] {tag} {'+'.join(t.name for t in tiers)} "
+        f"({store_cfg.fmt}): step_ms={[round(x, 1) for x in step_ms]} "
+        f"full put_ms={put_ms} writeback_ms={wb_ms} flush_ms={flush_ms:.1f} "
+        f"bytes_written={written} bytes_stored={stored} "
+        f"resident_bytes={st.get('resident_bytes', 0)} "
+        f"evictions={st.get('evictions', 0)} "
+        f"evictions_skipped={st.get('evictions_skipped', 0)} "
+        f"chunks={chunks} retries={cold.get('retries', 0)} "
+        f"recovery_ms={rec_ms:.1f} reopened_recovery_ms="
+        f"{'none' if reopened_ms is None else f'{reopened_ms:.1f}'} "
+        f"{rss.line()} "
+        f"launches={ {k: launches[k] for k in PATH_KERNELS['topk']} }")
+    del strat, trained
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tiers(dev, ckdir: str):
+    """Phase G: LowDiff's chain through each storage tier stack, built by
+    ``StoreConfig.build()`` as ``--backend``/``--format`` build it.
+    G1: the RAM tier (``--memory-capacity-mb 20480``: above one gpt2-l
+    full, 17.16 GB, and below two) over local frames, full-width and
+    full-depth gpt2-l, f=2 b=2 resumed at step 1 (full 2, diff 3, full 4,
+    diff 5): the older full written back, then evicted; recovery from RAM
+    and, after close(), through a local-only store on the same root.
+    G2-G4: gpt2-l at full width cut to 4 of its 36 layers, phase C's
+    chain (f=4, b=2, resumed at step 3): 4 shards; a remote ``file://``
+    bucket with 4 MiB chunks under its RAM tier (then recovered again
+    from the bucket alone); local npz. Returns the summed launches."""
+    from repro_torch.checkpoint.config import StoreConfig
+    from repro_torch.checkpoint.remote import make_remote_backend
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import get_config
+    gpt2 = get_config("gpt2-l")
+    cut = gpt2.replace(n_layers=4)
+    total = {k: 0 for k in PATH_KERNELS["topk"]}
+    url = f"file://{ckdir}"
+    runs = [
+        ("[G1]", gpt2, StoreConfig.from_legacy(
+            ckdir, backend="memory", capacity_mb=20480.0), 4, 1, 2,
+         lambda: StoreConfig(ckdir).build(), True),
+        ("[G2]", cut, StoreConfig.from_legacy(
+            ckdir, backend="sharded", shards=4), 4, 3, 4, None, False),
+        ("[G3]", cut, StoreConfig.from_legacy(
+            ckdir, backend="remote", remote_url=url, chunk_mb=4.0),
+         4, 3, 4, lambda: CheckpointStore(ckdir, backend=make_remote_backend(
+             url, chunk_bytes=4 << 20, journal_root=ckdir)), False),
+        ("[G4]", cut, StoreConfig.from_legacy(ckdir, fmt="npz"), 4, 3, 4,
+         None, False),
+    ]
+    for tag, cfg, store_cfg, steps, start, f, reopen, evict in runs:
+        got = _tier_chain(cfg, dev, store_cfg, tag, steps=steps, start=start,
+                          full_interval=f, reopen=reopen, evict=evict)
+        for k in total:
+            total[k] += got[k]
+    return total
+
+
 # ---------------------------------------------------------------- profile
 def phase_profile(cfg, dev, steps: int = 2):
     """``--profile``: torch.profiler over warm lowdiff and dense steps
@@ -1950,6 +2197,10 @@ def main() -> int:
             launches[k] += granite[k]
         launches["adam_tile_update"] += stablelm["adam_tile_update"]
         log(f"[time] + phase F: {time.perf_counter() - t_all:.1f} s")
+        got = phase_tiers(dev, args.ckpt_dir)
+        for k in PATH_KERNELS["topk"]:
+            launches[k] += got[k]
+        log(f"[time] + phase G: {time.perf_counter() - t_all:.1f} s")
     if args.profile:
         phase_profile(cfg, dev)
     kernels = []

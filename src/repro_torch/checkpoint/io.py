@@ -1,14 +1,22 @@
-"""Atomic tree checkpoint serialization: the streamed frame format
-(port of ``repro.checkpoint.io``, byte-compatible with it)::
+"""Atomic tree checkpoint serialization: streamed frames and legacy npz
+(port of ``repro.checkpoint.io``, byte-compatible with it).
 
-    RFRAME01 | header_len u64le | JSON header | pad -> 64B | leaf buffers
+* **Frame** (the fast path)::
 
-The JSON header carries the structure descriptor plus one record per
-leaf: byte ``offset`` (relative to the 64-byte-aligned data section),
-``nbytes``, ``dtype``, ``shape`` and ``sha256``. Every leaf buffer is
-64-byte aligned. Writers stream leaf by leaf; readers map the file with
-``np.memmap``. The same tree written by either package gives the same
-bytes, and each package reads the other's frames.
+      RFRAME01 | header_len u64le | JSON header | pad -> 64B | leaf buffers
+
+  The JSON header carries the structure descriptor plus one record per
+  leaf: byte ``offset`` (relative to the 64-byte-aligned data section),
+  ``nbytes``, ``dtype``, ``shape`` and ``sha256``. Every leaf buffer is
+  64-byte aligned. Writers stream leaf by leaf; readers map the file
+  with ``np.memmap``. The same tree written by either package gives the
+  same bytes, and each package reads the other's frames.
+  :func:`frame_chunks` cuts a frame into the chunk objects of the remote
+  tier, with the reference's coalescing rules.
+* **npz** (the seed format): an uncompressed zip of ``.npy`` buffers
+  ``a0..aN`` plus the JSON structure as ``__struct__``. Zip members
+  carry timestamps, so npz bytes are not stable; decoded arrays and the
+  structure are. :func:`load_any` / :func:`loads_any` sniff the magic.
 
 The codec covers the containers of the lowdiff and lowdiff_plus paths:
 dict, list, tuple, NamedTuple (keyed by class name — ``AdamState``,
@@ -29,6 +37,7 @@ of an incremental patch chain into its base).
 from __future__ import annotations
 
 import hashlib
+import io as _io
 import json
 import os
 import struct as _struct
@@ -47,7 +56,7 @@ from repro_torch.optim.adam import AdamState
 
 FRAME_MAGIC = b"RFRAME01"
 FRAME_ALIGN = 64
-FORMATS = ("frame",)
+FORMATS = ("frame", "npz")
 
 _NAMEDTUPLES: Dict[str, type] = {}
 
@@ -319,6 +328,62 @@ def atomic_write(path: str, write_fn) -> int:
 
 
 # ----------------------------------------------------------------------
+# legacy npz encoding
+# ----------------------------------------------------------------------
+
+def save_npz(path: str, payload: Dict[str, np.ndarray]) -> int:
+    """Atomic + fsync'd raw npz write. Returns bytes written."""
+    return atomic_write(path, lambda f: np.savez(f, **payload))
+
+
+def load_npz(path: str) -> Dict[str, np.ndarray]:
+    """Fully materialize an npz written by :func:`save_npz`."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def payload_of(obj: Any) -> Dict[str, np.ndarray]:
+    """The npz payload of obj: ``a0..aN`` plus the JSON structure as a
+    uint8 ``__struct__`` member (every npz writer emits exactly this)."""
+    struct, arrays = pack(obj)
+    payload = {f"a{i}": a for i, a in enumerate(arrays)}
+    payload["__struct__"] = np.frombuffer(
+        json.dumps(struct).encode(), dtype=np.uint8)
+    return payload
+
+
+def dumps(obj: Any) -> bytes:
+    """npz bytes of obj in memory (the remote tier's npz path); the
+    materialized blob reports to the copy meter."""
+    buf = _io.BytesIO()
+    np.savez(buf, **payload_of(obj))
+    data = buf.getvalue()
+    COPY_METER.add(len(data))
+    return data
+
+
+def _npz_unpack(z) -> Any:
+    struct = json.loads(bytes(z["__struct__"]).decode())
+    return _unpack(struct, z)
+
+
+def loads(data: bytes) -> Any:
+    """Inverse of :func:`dumps`."""
+    with np.load(_io.BytesIO(data)) as z:
+        return _npz_unpack(z)
+
+
+def save(path: str, obj: Any) -> int:
+    """Atomic npz write of a tree. Returns bytes written."""
+    return save_npz(path, payload_of(obj))
+
+
+def load(path: str) -> Any:
+    """Load a checkpoint file of either format (magic-sniffed)."""
+    return load_any(path)
+
+
+# ----------------------------------------------------------------------
 # streamed frame format
 # ----------------------------------------------------------------------
 
@@ -390,10 +455,53 @@ def write_frame(f, payload: Dict[str, np.ndarray],
     return total
 
 
+#: segments at or below this size are coalesced into shared chunks (a
+#: bounded copy of glue and small leaves); larger ones stream as
+#: zero-copy slices of their leaf
+_COALESCE_MAX = 1 << 18
+
+
+def frame_chunks(payload: Dict[str, np.ndarray], chunk_bytes: int,
+                 extra: Optional[dict] = None) -> Iterator[Any]:
+    """Yield the frame as buffers of at most ``chunk_bytes`` each (the
+    remote tier's chunk objects): large leaves as zero-copy views cut at
+    chunk boundaries, small segments (header, pads, leaves up to 256
+    KiB) coalesced into shared chunks. The coalesced tensor bytes report
+    to the copy meter."""
+    coalesce = min(_COALESCE_MAX, chunk_bytes)
+    _, segs = frame_segments(payload, extra)
+    pending = bytearray()
+    for seg in segs:
+        is_leaf = isinstance(seg, np.ndarray)
+        n = seg.nbytes if is_leaf else len(seg)
+        if n <= coalesce:
+            if pending and len(pending) + n > chunk_bytes:
+                yield bytes(pending)
+                pending = bytearray()
+            pending += bytes(seg)
+            if is_leaf:
+                COPY_METER.add(n)
+            continue
+        if pending:
+            yield bytes(pending)
+            pending = bytearray()
+        view = seg if is_leaf else memoryview(seg)
+        for o in range(0, n, chunk_bytes):
+            yield view[o:o + chunk_bytes]
+    if pending:
+        yield bytes(pending)
+
+
+def save_frame_payload(path: str, payload: Dict[str, np.ndarray],
+                       extra: Optional[dict] = None) -> int:
+    """Atomic streamed frame write of a named-array payload."""
+    return atomic_write(path, lambda f: write_frame(f, payload, extra))
+
+
 def save_frame(path: str, obj: Any) -> int:
     """Atomic streamed frame write of a tree. Returns bytes written."""
     payload, extra = frame_payload(obj)
-    return atomic_write(path, lambda f: write_frame(f, payload, extra))
+    return save_frame_payload(path, payload, extra)
 
 
 def frame_dumps(obj: Any) -> bytes:
@@ -585,3 +693,29 @@ def frame_loads(data: bytes, *, verify: bool = False) -> Any:
     return unpack(header["struct"], leaves)
 
 
+# ----------------------------------------------------------------------
+# format sniffing
+# ----------------------------------------------------------------------
+
+def is_frame_bytes(data) -> bool:
+    return bytes(data[:len(FRAME_MAGIC)]) == FRAME_MAGIC
+
+
+def is_frame_file(path: str) -> bool:
+    with open(path, "rb") as f:
+        return f.read(len(FRAME_MAGIC)) == FRAME_MAGIC
+
+
+def load_any(path: str, *, mmap: bool = True, verify: bool = False) -> Any:
+    """Load a checkpoint of either format, sniffing the magic bytes."""
+    if is_frame_file(path):
+        return load_frame(path, mmap=mmap, verify=verify)
+    with np.load(path) as z:
+        return _npz_unpack(z)
+
+
+def loads_any(data: bytes, *, verify: bool = False) -> Any:
+    """Deserialize a checkpoint byte blob of either format."""
+    if is_frame_bytes(data):
+        return frame_loads(data, verify=verify)
+    return loads(bytes(data))

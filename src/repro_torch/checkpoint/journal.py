@@ -1,6 +1,7 @@
 """Append-only manifest journal with periodic compaction (port of
-``repro.checkpoint.journal``: the single-writer journal; per-host
-segments are not ported).
+``repro.checkpoint.journal``: the single-writer journal and the
+in-memory journal of a backend with no durable root; per-host segments
+are not ported).
 
 One JSON line is appended per mutation (O(1) bytes per write) and the
 log is periodically folded into an atomic snapshot — the same files and
@@ -65,6 +66,30 @@ def _blank() -> Dict[str, List[dict]]:
     return {k: [] for k in EMPTY}
 
 
+class MemoryJournal:
+    """Journal of a backend with no durable root (a pure RAM tier, a
+    ``fake://`` bucket): the manifest lives only in this process."""
+
+    def __init__(self):
+        self.manifest = _blank()
+        self.appends = 0
+
+    def append(self, op: str, kind: str, *, entry: Optional[dict] = None,
+               key: Optional[str] = None) -> int:
+        _apply(self.manifest, op, kind, entry, key)
+        self.appends += 1
+        return 0  # no bytes hit storage
+
+    def compact(self):
+        pass
+
+    def close(self):
+        pass
+
+    def stats(self):
+        return {"appends": self.appends, "log_bytes": 0, "compactions": 0}
+
+
 class ManifestJournal:
     SNAPSHOT = "manifest.json"
     LOG = "manifest.log"
@@ -93,7 +118,8 @@ class ManifestJournal:
         if any(f.startswith("manifest.") and f.endswith(".log")
                and f != self.LOG for f in os.listdir(self.root)):
             raise NotImplementedError(
-                "per-host journal segments are not ported (ROADMAP slice 4)")
+                "per-host journal segments are not ported (ROADMAP §1 "
+                "item 5)")
         self._seq, valid_bytes, total = _fold_legacy_log(
             manifest, self.root, self._seq)
         if valid_bytes < total:

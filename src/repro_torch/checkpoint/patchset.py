@@ -141,6 +141,11 @@ class PatchSet:
         return sp.start == 0 and (not shape or sp.rows == shape[0])
 
     @property
+    def nbytes(self) -> int:
+        return int(sum(np.asarray(sp.data).nbytes
+                       for spans in self._spans.values() for sp in spans))
+
+    @property
     def span_count(self) -> int:
         return sum(len(s) for s in self._spans.values())
 
@@ -150,6 +155,16 @@ class PatchSet:
         ps = PatchSet()
         for name in names:
             ps._spans[name] = list(self._spans[name])
+            ps._shapes[name] = self._shapes[name]
+        return ps
+
+    def copy(self) -> "PatchSet":
+        """Deep copy (span data owned): what a tier hands to its
+        asynchronous write-back."""
+        ps = PatchSet()
+        for name, spans in self._spans.items():
+            ps._spans[name] = [Span(sp.start, np.array(np.asarray(sp.data)))
+                               for sp in spans]
             ps._shapes[name] = self._shapes[name]
         return ps
 

@@ -1,6 +1,9 @@
 """Checkpoint chain store: full/diff/batch/patch semantics over a
-backend (port of ``repro.checkpoint.store``; no GC, quarantine, peer
-adoption or maintenance service yet).
+backend's tier stack (port of ``repro.checkpoint.store``; no GC,
+quarantine, peer adoption or maintenance service yet). The manifest
+journal lives under the backend's ``persist_root``, or only in this
+process (:class:`~repro_torch.checkpoint.journal.MemoryJournal`) when the
+backend has none.
 
 Keys and manifest records are the reference's, so a chain written by
 either package recovers in the other::
@@ -29,7 +32,8 @@ import numpy as np
 
 from repro_torch.checkpoint import io as cio
 from repro_torch.checkpoint.backends import LocalFSBackend
-from repro_torch.checkpoint.journal import ManifestJournal, _entry_key
+from repro_torch.checkpoint.journal import (ManifestJournal, MemoryJournal,
+                                            _entry_key)
 from repro_torch.checkpoint.patchset import (PatchSet, RowUpdate, Span,
                                              merge_span_chain)
 from repro_torch.compression.quant_span import QuantSpan
@@ -112,8 +116,13 @@ class CheckpointStore:
         self.backend = backend
         self.root = root if root is not None else backend.persist_root
         self._lock = threading.RLock()
-        self.journal = ManifestJournal(backend.persist_root,
-                                       compact_every=compact_every)
+        #: keys whose put runs or is not journaled yet: protected from
+        #: eviction whatever set another writer applies meanwhile
+        self._incoming: set = set()
+        self.journal = (ManifestJournal(backend.persist_root,
+                                        compact_every=compact_every)
+                        if backend.persist_root is not None
+                        else MemoryJournal())
         from repro_torch.obs.metrics import InstrumentSet
         self._inst = InstrumentSet("store")
         self._bytes_written = self._inst.counter("bytes_written")
@@ -164,18 +173,29 @@ class CheckpointStore:
         entry.setdefault("tier", self.backend.provenance)
         with self._lock:
             self.journal.append("add", kind, entry=entry)
+            self._incoming.discard(entry["key"])
         self._bytes_written.add(nbytes)
         self._writes.add(1)
 
     def _put(self, span: str, key: str, obj, **attrs) -> int:
         # pre-protect: a capacity-bounded tier must not evict the
-        # incoming blob before the journal records it
-        self._update_protected(extra={key})
-        with trace_span(span, "store", key=key, **attrs) as sp:
-            t0 = time.perf_counter()
-            n = self.backend.put(key, obj)
-            self._write_time.observe(time.perf_counter() - t0)
-            sp.set(bytes=n)
+        # incoming blob before the journal records it, even when a
+        # concurrent writer (the batch consumer, the other persist
+        # worker) applies its own set in between; the caller's _record
+        # ends the protection that the newest chain does not carry on
+        with self._lock:
+            self._incoming.add(key)
+        self._update_protected()
+        try:
+            with trace_span(span, "store", key=key, **attrs) as sp:
+                t0 = time.perf_counter()
+                n = self.backend.put(key, obj)
+                self._write_time.observe(time.perf_counter() - t0)
+                sp.set(bytes=n)
+        except BaseException:
+            with self._lock:
+                self._incoming.discard(key)
+            raise
         return n
 
     # ------------------------------------------------------------------
@@ -201,6 +221,11 @@ class CheckpointStore:
         extents, the logical span bytes and the codec tags go into the
         manifest entry. The blob lands and is journaled before any fold
         touches the base frame: it is the fold's write-ahead log."""
+        if self.backend.fmt == "npz":
+            raise ValueError(
+                "incremental persistence (save_patch) requires the "
+                "frame checkpoint format; this store writes npz — use "
+                "--format frame or --persist-mode full")
         key = f"patch_{step:08d}"
         n = self._put("store.save_patch", key,
                       {"base": base_key, "step": step, "updates": updates})
@@ -276,14 +301,15 @@ class CheckpointStore:
         return key
 
     # ------------------------------------------------------------------
-    def _update_protected(self, extra=()):
+    def _update_protected(self):
         """Tell the backend which blobs form the newest full's chain (the
-        full plus every diff/batch/patch after its step), plus ``extra``
-        keys whose put is about to run; computed and applied under the
-        store lock so concurrent writers cannot apply stale sets. The
-        local tier evicts nothing; a capacity-bounded tier keeps these."""
-        keys = set(extra)
+        full plus every diff/batch/patch after its step), plus the keys
+        whose put runs or is not journaled yet; computed and applied
+        under the store lock so concurrent writers cannot apply stale
+        sets. The local tier evicts nothing; a capacity-bounded tier
+        keeps these."""
         with self._lock:
+            keys = set(self._incoming)
             fulls = self.manifest["fulls"]
             if not fulls and not keys:
                 return
@@ -370,6 +396,9 @@ class CheckpointStore:
         ``finish(state)`` runs once the chain is overlaid (the device
         overlay of ``recovery.load_state_device`` plugs in here)."""
         from repro_torch.checkpoint.io import FrameCorruptionError
+        from repro_torch.checkpoint.remote import RetryExhaustedError
+        unreadable = (FileNotFoundError, RetryExhaustedError,
+                      FrameCorruptionError)
         with self._lock:
             fulls = order_fulls(self.manifest["fulls"])
         if not fulls:
@@ -378,14 +407,14 @@ class CheckpointStore:
         for entry in fulls:
             try:
                 state = self.load_full(entry)
-            except (FileNotFoundError, FrameCorruptionError) as e:
+            except unreadable as e:
                 last_err = e
                 continue
             step = int(entry.get("state_step", entry["step"]))
             for pe in self.patch_chain(self._entry_key(entry)):
                 try:
                     blob = self.backend.get(self._entry_key(pe))
-                except (FileNotFoundError, FrameCorruptionError):
+                except unreadable:
                     break            # cut at the gap: prefix is committed
                 merge(state, blob["updates"])
                 step = max(step, int(pe["step"]))
@@ -516,7 +545,8 @@ class CheckpointStore:
 
     # ------------------------------------------------------------------
     def flush(self, timeout: Optional[float] = None):
-        """Block until every accepted write is durable."""
+        """Block until every accepted write is durable at the lowest
+        tier (a failed asynchronous write-back is re-raised here)."""
         self.backend.flush()
 
     def close(self):

@@ -1,24 +1,26 @@
 """Engine configuration + factory (port of ``repro.core.engine``): every
 strategy of the reference — LowDiff, LowDiff+ and the paper's baselines
-(CheckFreq, Gemini, NaiveDC, FullSync) — over the local backend.
+(CheckFreq, Gemini, NaiveDC, FullSync) — over a store declared by a
+nested :class:`~repro_torch.checkpoint.config.StoreConfig`.
 
-:data:`FLAG_MAP` maps every launcher flag that configures the engine or
-the store to its config field; :meth:`EngineConfig.from_args` is the one
-flag -> config translation.
+:data:`FLAG_MAP` maps every launcher flag that configures the engine,
+the store or one of its tiers to its config field;
+:meth:`EngineConfig.from_args` is the one flag -> config translation.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
 
-from repro_torch.checkpoint.backends import BACKENDS, make_backend
-from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.checkpoint.config import StoreConfig
 from repro_torch.core.steps import COMPRESSORS
 
 STRATEGIES = ("none", "lowdiff", "lowdiff_plus", "checkfreq", "gemini",
               "naive_dc", "full_sync")
 
-#: argparse dest -> (scope, field); scopes "engine" and "store"
+#: argparse dest -> (scope, field). Scopes: "engine" (EngineConfig
+#: field), "store" (StoreConfig field), "tier:<kind>" (TierSpec field on
+#: that tier)
 FLAG_MAP: Dict[str, tuple] = {
     "strategy": ("engine", "strategy"),
     "lr": ("engine", "lr"),
@@ -41,7 +43,14 @@ FLAG_MAP: Dict[str, tuple] = {
     "device": ("engine", "device"),
     "ckpt_dir": ("store", "root"),
     "format": ("store", "fmt"),
-    "backend": ("store", "backend"),
+    "backend": ("store", "tiers"),          # legacy name -> tier list
+    "shards": ("tier:sharded", "shards"),
+    "memory_capacity_mb": ("tier:memory", "capacity_mb"),
+    "eviction": ("tier:memory", "eviction"),
+    "remote_url": ("tier:remote", "url"),
+    "chunk_mb": ("tier:remote", "chunk_mb"),
+    "max_retries": ("tier:remote", "max_retries"),
+    "remote_fault_rate": ("tier:remote", "fault_rate"),
 }
 
 #: parser dests that are runtime inputs, not engine/store config
@@ -76,9 +85,7 @@ class EngineConfig:
     metrics_out: Optional[str] = None
     trace_buffer: int = 65536
     device: str = "cuda"
-    root: Optional[str] = None    #: checkpoint directory
-    fmt: str = "frame"
-    backend: str = "local"
+    store: Optional[StoreConfig] = None
 
     def validate(self) -> None:
         if self.strategy not in STRATEGIES:
@@ -100,28 +107,44 @@ class EngineConfig:
             raise ConfigError(
                 f"compressor: {self.compressor!r} is not one of "
                 f"{COMPRESSORS}")
-        if self.backend not in BACKENDS:
-            raise ConfigError(
-                f"backend: {self.backend!r} is not one of {BACKENDS}")
-        if self.fmt != "frame":
-            raise ConfigError(f"fmt: {self.fmt!r} is not ported ('frame')")
+        if self.store is not None:
+            self.store.validate()
 
     @classmethod
     def from_args(cls, ns: Any) -> "EngineConfig":
         defaults = {f.name: f.default for f in dataclasses.fields(cls)}
-        kw = {field: getattr(ns, dest, defaults[field])
-              for dest, (_, field) in FLAG_MAP.items()}
+
+        def flag(dest: str, default: Any) -> Any:
+            return getattr(ns, dest, default)
+
+        kw = {field: flag(dest, defaults[field])
+              for dest, (scope, field) in FLAG_MAP.items()
+              if scope == "engine"}
         if isinstance(kw.get("replay_device"), str):
             kw["replay_device"] = kw["replay_device"] == "on"
-        cfg = cls(**kw)
+        root = flag("ckpt_dir", None)
+        store = None
+        if root:
+            store = StoreConfig.from_legacy(
+                root,
+                backend=flag("backend", "local"),
+                shards=flag("shards", 4),
+                capacity_mb=flag("memory_capacity_mb", None),
+                remote_url=flag("remote_url", None),
+                chunk_mb=flag("chunk_mb", 4.0),
+                max_retries=flag("max_retries", 4),
+                remote_fault_rate=flag("remote_fault_rate", 0.0),
+                fmt=flag("format", "frame"),
+                eviction=flag("eviction", "fifo"))
+        cfg = cls(store=store, **kw)
         cfg.validate()
         return cfg
 
-    def build_store(self) -> Optional[CheckpointStore]:
-        if self.root is None:
+    def build_store(self):
+        """The configured store (None when none is configured)."""
+        if self.store is None:
             return None
-        return CheckpointStore(self.root, backend=make_backend(
-            self.backend, self.root, fmt=self.fmt))
+        return self.store.build()
 
 
 def make_engine(cfg: EngineConfig, model, store=None):

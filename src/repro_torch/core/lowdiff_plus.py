@@ -411,6 +411,12 @@ class LowDiffPlus:
                 "--diff-quant quantizes row-span differentials: it "
                 "requires --persist-mode incremental and "
                 "--dirty-granularity row")
+        if (persist_mode == "incremental" and store is not None
+                and store.backend.fmt == "npz"):
+            raise ValueError(
+                "--persist-mode incremental patches checkpoint leaves "
+                "in place, which requires the frame format; this store "
+                "writes npz — use --format frame or --persist-mode full")
         self.model, self.store, self.lr = model, store, lr
         self.device = resolve_device(device)
         self.persist_interval = persist_interval

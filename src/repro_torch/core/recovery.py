@@ -47,11 +47,14 @@ from repro_torch.optim.adam import AdamState
 
 def load_latest_chain(store):
     """Load the newest loadable full checkpoint and the ordered
-    differentials after it. A full that cannot be read back (missing
-    blob, corrupt frame) falls back to the next older full. Returns
-    (state, [(step, payload), ...]) with host leaves; raises
-    FileNotFoundError when no full checkpoint is loadable."""
+    differentials after it, from whatever tier stack the store wraps. A
+    full that cannot be read back (missing blob, corrupt frame, or a
+    remote tier whose bounded re-fetches never returned checksum-clean
+    chunks) falls back to the next older full. Returns (state, [(step,
+    payload), ...]) with host leaves; raises FileNotFoundError when no
+    full checkpoint is loadable."""
     from repro_torch.checkpoint.io import FrameCorruptionError
+    from repro_torch.checkpoint.remote import RetryExhaustedError
     from repro_torch.checkpoint.store import order_fulls
     fulls = order_fulls(store.manifest["fulls"])
     if not fulls:
@@ -60,7 +63,8 @@ def load_latest_chain(store):
     for entry in fulls:
         try:
             state = store.load_full(entry)
-        except (FileNotFoundError, FrameCorruptionError) as e:
+        except (FileNotFoundError, RetryExhaustedError,
+                FrameCorruptionError) as e:
             last_err = e
             continue
         return state, store.diffs_after(entry["step"])

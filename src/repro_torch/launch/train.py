@@ -26,6 +26,9 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch gpt2-l --reduced --strategy naive_dc --steps 8 \\
         --full-interval 4 --fail-at 7
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch gpt2-l --reduced --steps 8 --full-interval 4 --fail-at 7 \\
+        --backend remote --remote-url fake://bkt --remote-fault-rate 0.05
 """
 from __future__ import annotations
 
@@ -170,14 +173,35 @@ def build_parser() -> argparse.ArgumentParser:
                          "temporary directory, i.e. $TMPDIR); wiped at "
                          "launch by --clean")
     ap.add_argument("--backend", choices=BACKENDS, default="local",
-                    help="checkpoint storage backend (only the local FS "
-                         "tier is ported)")
+                    help="checkpoint storage backend (local FS, CPU-memory "
+                         "tier with async write-back, sharded concurrent, "
+                         "or a remote object store under a RAM tier)")
     ap.add_argument("--format", choices=FORMATS, default="frame",
-                    help="checkpoint serialization (streamed frames)")
+                    help="checkpoint serialization: 'frame' (streamed "
+                         "zero-copy, memmap reads) or 'npz' (legacy); "
+                         "reads sniff, so old chains recover either way")
     ap.add_argument("--compressor", choices=COMPRESSORS, default="topk",
                     help="lowdiff gradient compression: topk sparsification, "
                          "quant8 blockwise int8, or packed (fused top-k + "
                          "int8 + wire pack in one kernel)")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="shard count for --backend sharded")
+    ap.add_argument("--memory-capacity-mb", type=float, default=None,
+                    help="RAM-tier byte budget for --backend memory/remote")
+    ap.add_argument("--remote-url", default=None,
+                    help="object store for --backend remote: fake://bucket "
+                         "(in-process) or file:///path (directory-backed); "
+                         "default file://<ckpt-dir>")
+    ap.add_argument("--chunk-mb", type=float, default=4.0,
+                    help="remote-tier content chunk size in MiB")
+    ap.add_argument("--max-retries", type=int, default=4,
+                    help="bounded retries per remote chunk transfer")
+    ap.add_argument("--remote-fault-rate", type=float, default=0.0,
+                    help="injected transient-fault probability on fake:// "
+                         "stores (exercises retry/backoff)")
+    ap.add_argument("--eviction", choices=("fifo", "lru"), default="fifo",
+                    help="memory-tier eviction policy over size-class "
+                         "buckets; lru refreshes recency on recovery reads")
     ap.add_argument("--persist-mode", choices=("full", "incremental"),
                     default="full",
                     help="lowdiff_plus persistence: 'full' rewrites the "

@@ -1,15 +1,17 @@
 """The port's frame codec and chain store against the JAX reference's:
 the same state gives byte-identical frames, each package loads the
-other's frames, and a chain written by either package recovers in the
-other (reduced gpt2-l, on the CPU)."""
+other's frames, and a LowDiff chain written by either package through
+each tier stack and format loads bit for bit in the other and recovers
+there (reduced gpt2-l, on the CPU)."""
 import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
+import pytest
 import torch
 
 from repro.checkpoint import io as jio
-from repro.checkpoint.store import CheckpointStore as JaxStore
+from repro.checkpoint.config import StoreConfig as JaxStoreConfig
 from repro.compression.sparse import SparseGrad as JaxSparse
 from repro.configs import get_config as jax_config
 from repro.core import recovery as jrec
@@ -20,7 +22,7 @@ from repro.models.registry import build_model as jax_model
 from repro.optim.adam import AdamState as JaxAdam
 from repro_torch import tree_leaves
 from repro_torch.checkpoint import io
-from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.checkpoint.config import StoreConfig
 from repro_torch.compression.sparse import SparseGrad
 from repro_torch.configs import get_config
 from repro_torch.core import recovery as rec
@@ -116,32 +118,80 @@ def _assert_state_close(params, opt, ref_params, ref_opt):
     assert int(opt.count) == int(ref_opt.count)
 
 
-def test_port_chain_recovers_in_reference(tmp_path):
+#: tier stacks a chain crosses packages through: (tiers, format); the
+#: memory tier is read back after close(), from the tier below it
+STACKS = {
+    "local": ([{"kind": "local"}], "frame"),
+    "memory+local": ([{"kind": "memory", "capacity_mb": 16.0},
+                      {"kind": "local"}], "frame"),
+    "sharded": ([{"kind": "sharded", "shards": 3}], "frame"),
+    "remote-file": ([{"kind": "remote", "chunk_mb": 0.25}], "frame"),
+    "local-npz": ([{"kind": "local"}], "npz"),
+    "sharded-npz": ([{"kind": "sharded", "shards": 3}], "npz"),
+}
+
+
+def _store_dict(tmp_path, stack):
+    tiers, fmt = STACKS[stack]
+    return {"root": str(tmp_path), "tiers": tiers, "fmt": fmt}
+
+
+def _bits(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return io.to_numpy(x)
+    a = np.asarray(x)
+    return a.view(np.uint16) if a.dtype == ml_dtypes.bfloat16 else a
+
+
+def _assert_chains_bitwise(d):
+    """Both packages load the chain at ``d`` to the same bits."""
+    state, diffs = rec.load_latest_chain(StoreConfig.from_dict(d).build())
+    jstate, jdiffs = jrec.load_latest_chain(
+        JaxStoreConfig.from_dict(d).build())
+    assert [s for s, _ in diffs] == [s for s, _ in jdiffs] == [5, 6, 7]
+    mine = tree_leaves((state, [p for _, p in diffs]))
+    theirs = jax.tree.leaves((jstate, [p for _, p in jdiffs]))
+    assert len(mine) == len(theirs)
+    for a, b in zip(mine, theirs):
+        a, b = _bits(a), _bits(b)
+        assert (a.dtype, a.shape) == (b.dtype, b.shape)
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("stack", STACKS)
+def test_port_chain_recovers_in_reference(tmp_path, stack):
+    d = _store_dict(tmp_path, stack)
     cfg = get_config("gpt2-l").reduced()
     model = build_model(cfg)
-    strat = LowDiff(model, CheckpointStore(str(tmp_path)), full_interval=4,
-                    batch_size=2, device="cpu")
+    strat = LowDiff(model, StoreConfig.from_dict(d).build(),
+                    full_interval=4, batch_size=2, device="cpu")
     state = init_state(model, 3, device="cpu")
     for t in range(7):
         state, _ = strat.train_step(state, make_batch(cfg, 64, 2, step=t))
     strat.close()
-    jstate, diffs = jrec.load_latest_chain(JaxStore(str(tmp_path)))
+    _assert_chains_bitwise(d)
+    jstate, diffs = jrec.load_latest_chain(
+        JaxStoreConfig.from_dict(d).build())
     diffs = jrec.contiguous_prefix(int(jstate["step"]), diffs)
     assert [s for s, _ in diffs] == [5, 6, 7]
     jp, jopt = jrec.replay_serial(jstate["params"], jstate["opt"], diffs)
     _assert_state_close(state["params"], state["opt"], jp, jopt)
 
 
-def test_reference_chain_recovers_in_port(tmp_path):
+@pytest.mark.parametrize("stack", STACKS)
+def test_reference_chain_recovers_in_port(tmp_path, stack):
+    d = _store_dict(tmp_path, stack)
     jcfg = jax_config("gpt2-l").reduced()
     jm = jax_model(jcfg)
-    jstrat = JaxLowDiff(jm, JaxStore(str(tmp_path)), full_interval=4,
-                        batch_size=2, parallel_recovery=False)
+    jstrat = JaxLowDiff(jm, JaxStoreConfig.from_dict(d).build(),
+                        full_interval=4, batch_size=2,
+                        parallel_recovery=False)
     jstate = jax_init_state(jm, jax.random.PRNGKey(4))
     for t in range(7):
         jstate, _ = jstrat.train_step(jstate, jax_batch(jcfg, 64, 2, step=t))
     jstrat.close()
-    state, diffs = rec.load_latest_chain(CheckpointStore(str(tmp_path)))
+    _assert_chains_bitwise(d)
+    state, diffs = rec.load_latest_chain(StoreConfig.from_dict(d).build())
     diffs = rec.contiguous_prefix(int(state["step"]), diffs)
     assert [s for s, _ in diffs] == [5, 6, 7]
     params, opt = rec.replay_serial(state["params"], state["opt"], diffs,
