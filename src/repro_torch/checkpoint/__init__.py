@@ -1,7 +1,7 @@
-"""Checkpoint storage: frame and npz codecs, manifest journals, the tier
-backends (local, memory, sharded, remote), their declarative
-configuration and the chain store (port of ``repro.checkpoint``; the
-peer tier is not ported yet)."""
+"""Checkpoint storage: frame and npz codecs, manifest journals (single,
+per-host segments, the peer tap), the tier backends (peer, memory,
+local, sharded, remote), their declarative configuration and the chain
+store (port of ``repro.checkpoint``)."""
 from repro_torch.checkpoint.backends import (BACKENDS,  # noqa: F401
                                              LocalFSBackend,
                                              MemoryTierBackend,
@@ -10,8 +10,16 @@ from repro_torch.checkpoint.backends import (BACKENDS,  # noqa: F401
 from repro_torch.checkpoint.config import (StoreConfig,  # noqa: F401
                                            StoreConfigError, TierSpec)
 from repro_torch.checkpoint.io import FORMATS, FrameCorruptionError  # noqa: F401
-from repro_torch.checkpoint.journal import (ManifestJournal,  # noqa: F401
-                                            MemoryJournal)
+from repro_torch.checkpoint.journal import (JournalSegment,  # noqa: F401
+                                            JournalTap, ManifestJournal,
+                                            MemoryJournal,
+                                            SegmentedManifestJournal)
+from repro_torch.checkpoint.peer import (LoopbackTransport,  # noqa: F401
+                                         PeerGroup, PeerHub, PeerInfo,
+                                         PeerNode, PeerReplicaBackend,
+                                         PeerServer, PeerUnreachableError,
+                                         SocketTransport, Transport,
+                                         get_hub, reset_hub)
 from repro_torch.checkpoint.remote import (ChecksumError,  # noqa: F401
                                            FakeObjectStore, FaultInjector,
                                            FilesystemObjectStore,
@@ -19,4 +27,5 @@ from repro_torch.checkpoint.remote import (ChecksumError,  # noqa: F401
                                            RetryExhaustedError,
                                            TransientStoreError,
                                            make_remote_backend)
-from repro_torch.checkpoint.store import CheckpointStore  # noqa: F401
+from repro_torch.checkpoint.store import (CheckpointStore,  # noqa: F401
+                                          order_fulls)

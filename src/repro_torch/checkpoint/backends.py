@@ -1,5 +1,6 @@
 """Checkpoint storage backends (port of ``repro.checkpoint.backends``;
-the peer tier and the mesh-following shard splitter are not ported).
+the mesh-following shard splitter is not ported; the peer tier is in
+:mod:`repro_torch.checkpoint.peer`).
 
 A backend is a key -> tree blob store; :class:`repro_torch.checkpoint.
 store.CheckpointStore` layers the full/diff/batch chain semantics and
@@ -112,9 +113,10 @@ class StorageBackend(abc.ABC):
             return f"{type(e).__name__}: {e}"
         return None
 
-    def sweep_orphans(self, min_age_s: float = 60.0) -> int:
+    def sweep_orphans(self, min_age_s: float = 60.0, spare=()) -> int:
         """Remove debris no committed blob references (crashed
-        half-writes) older than ``min_age_s``. Returns the count."""
+        half-writes) older than ``min_age_s``, never that of a key in
+        ``spare`` (the store's puts in flight). Returns the count."""
         return 0
 
     def flush(self) -> None:
@@ -222,13 +224,15 @@ class LocalFSBackend(StorageBackend):
             return f"{type(e).__name__}: {e}"
         return None
 
-    def sweep_orphans(self, min_age_s: float = 60.0) -> int:
+    def sweep_orphans(self, min_age_s: float = 60.0, spare=()) -> int:
         """Remove ``.tmp`` debris of atomic writes that crashed before
-        their rename; age-gated so a write in flight is never swept."""
+        their rename (``<key>.<suffix>.<random>.tmp``); age-gated, and a
+        key in ``spare`` keeps its file whatever its age."""
+        spare = set(spare)
         removed = 0
         cutoff = time.time() - min_age_s
         for f in os.listdir(self.root):
-            if not f.endswith(".tmp"):
+            if not f.endswith(".tmp") or f.split(".", 1)[0] in spare:
                 continue
             p = os.path.join(self.root, f)
             try:
@@ -520,9 +524,13 @@ class MemoryTierBackend(StorageBackend):
                 return None
         raise FileNotFoundError(f"memory tier has no blob {key!r}")
 
-    def sweep_orphans(self, min_age_s: float = 60.0) -> int:
-        return (self.lower.sweep_orphans(min_age_s)
-                if self.lower is not None else 0)
+    def sweep_orphans(self, min_age_s: float = 60.0, spare=()) -> int:
+        """The lower tier's sweep, sparing also the keys whose
+        write-back has not landed."""
+        if self.lower is None:
+            return 0
+        return self.lower.sweep_orphans(
+            min_age_s, set(spare) | set(self._inflight.copy()))
 
     def exists(self, key: str) -> bool:
         with self._lock:
@@ -851,12 +859,12 @@ class ShardedBackend(StorageBackend):
                 return f"shard {k}: {type(e).__name__}: {e}"
         return None
 
-    def sweep_orphans(self, min_age_s: float = 60.0) -> int:
+    def sweep_orphans(self, min_age_s: float = 60.0, spare=()) -> int:
         """Reap shard files whose key has no committed meta file (a put
         that crashed before its commit point), skipping keys with a put
-        in flight."""
+        in flight and the keys in ``spare``."""
         with self._active_lock:
-            active = set(self._active_puts)
+            active = set(self._active_puts) | set(spare)
         removed = 0
         cutoff = time.time() - min_age_s
         for d in os.listdir(self.root):

@@ -1,25 +1,24 @@
 """Declarative store configuration: a store is a typed list of tiers
 (port of ``repro.checkpoint.config``).
 
-* :class:`TierSpec` — one storage tier (``memory`` / ``local`` /
-  ``sharded`` / ``remote``) with only the knobs that tier has; setting a
-  knob on the wrong kind is a validation error that names the field.
+* :class:`TierSpec` — one storage tier (``peer`` / ``memory`` /
+  ``local`` / ``sharded`` / ``remote``) with only the knobs that tier
+  has; setting a knob on the wrong kind is a validation error that names
+  the field.
 * :class:`StoreConfig` — the whole store: a hot-to-cold tier list plus
-  store-wide policy (format, journal compaction).
+  store-wide policy (format, retention, journal host id, compaction).
 
 ::
 
     cfg = StoreConfig(root="/tmp/ck", tiers=[
+        TierSpec("peer", replicas=2, hub="cluster"),
         TierSpec("memory", capacity_mb=256, eviction="lru"),
         TierSpec("local"),
-    ])
+    ], retention_fulls=2, host_id="h0")
     store = cfg.build()
 
 ``to_dict`` / ``from_dict`` round-trip losslessly and read the
-reference's dicts. Settings that name work the port does not have yet
-are refused with the ROADMAP item that ports it: the ``peer`` tier, a
-non-zero ``retention_fulls`` (garbage collection) and a ``host_id``
-(per-host journal segments), all ROADMAP §1 item 5.
+reference's dicts.
 """
 from __future__ import annotations
 
@@ -29,8 +28,6 @@ from typing import Any, Dict, List, Optional, Tuple
 TIER_KINDS = ("peer", "memory", "local", "sharded", "remote")
 #: tiers that can anchor a store (own the durable bytes + journal root)
 BASE_KINDS = ("local", "sharded", "remote", "memory")
-#: where the refused settings are ported
-_NEXT_SLICE = "not ported yet (ROADMAP §1 item 5)"
 
 
 class StoreConfigError(ValueError):
@@ -54,19 +51,17 @@ _TIER_FIELDS: Dict[str, Tuple[str, ...]] = {
 @dataclasses.dataclass
 class TierSpec:
     """One tier of the placement hierarchy. Only the fields listed in
-    ``_TIER_FIELDS[kind]`` may differ from their defaults. The peer
-    fields keep the reference's names so its dicts parse; the peer tier
-    itself is refused."""
+    ``_TIER_FIELDS[kind]`` may differ from their defaults."""
 
     kind: str
     # -- peer tier -----------------------------------------------------
-    replicas: int = 2
-    window: int = 8
-    hub: Optional[str] = None
-    node_id: Optional[str] = None
-    domain: str = "d0"
-    latency_s_per_mb: float = 0.0
-    simulate_peers: bool = False
+    replicas: int = 2           #: K peer replicas per blob
+    window: int = 8             #: bounded in-flight replication sends
+    hub: Optional[str] = None   #: loopback hub name (in-process cluster)
+    node_id: Optional[str] = None  #: this host's peer id (default: host)
+    domain: str = "d0"          #: failure domain of this host
+    latency_s_per_mb: float = 0.0  #: simulated link latency (loopback)
+    simulate_peers: bool = False  #: register K synthetic peers
     # -- memory tier ---------------------------------------------------
     capacity_mb: Optional[float] = None  #: RAM budget (remote: RAM cache)
     eviction: str = "fifo"      #: victim policy over size-class buckets
@@ -104,9 +99,6 @@ class TierSpec:
             raise StoreConfigError(f"{where}.capacity_mb: must be > 0")
         if not 0.0 <= self.fault_rate <= 1.0:
             raise StoreConfigError(f"{where}.fault_rate: must be in [0,1]")
-        if self.kind == "peer":
-            raise StoreConfigError(
-                f"{where}.kind: the peer replication tier is {_NEXT_SLICE}")
 
     def to_dict(self) -> Dict[str, Any]:
         """``kind`` plus the fields that differ from their defaults."""
@@ -196,12 +188,6 @@ class StoreConfig:
             raise StoreConfigError(
                 "tiers: a capacity-bounded memory tier needs a lower "
                 "tier to spill to (add a local/sharded/remote base)")
-        if self.retention_fulls:
-            raise StoreConfigError(
-                f"retention_fulls: garbage collection is {_NEXT_SLICE}")
-        if self.host_id is not None:
-            raise StoreConfigError(
-                f"host_id: the segmented journal is {_NEXT_SLICE}")
 
     # ------------------------------------------------------------------
     def build_backend(self):
@@ -225,6 +211,8 @@ class StoreConfig:
                        if spec.capacity_mb else None)
                 backend = MemoryTierBackend(backend, capacity_bytes=cap,
                                             eviction=spec.eviction)
+            elif spec.kind == "peer":
+                backend = self._build_peer(spec, backend, f"tiers[{i}]")
         return backend
 
     def _build_remote(self, spec: TierSpec, where: str):
@@ -247,11 +235,45 @@ class StoreConfig:
         return MemoryTierBackend(lower, capacity_bytes=cap,
                                  eviction=spec.eviction)
 
+    def _build_peer(self, spec: TierSpec, lower, where: str):
+        from repro_torch.checkpoint.peer import (FaultInjector,
+                                                 LoopbackTransport,
+                                                 PeerGroup,
+                                                 PeerReplicaBackend, get_hub)
+        if lower is None:
+            raise StoreConfigError(
+                f"{where}: the peer tier needs a lower tier to wrap")
+        hub = get_hub(spec.hub or "default")
+        node_id = spec.node_id or self.host_id or "host0"
+        hub.ensure(node_id, spec.domain)
+        if spec.simulate_peers:
+            # single-process simulation: make sure K peers exist, each
+            # in its own synthetic failure domain
+            others = [p for p in hub.members() if p.node_id != node_id]
+            for i in range(len(others), spec.replicas):
+                hub.ensure(f"sim{i}", f"simdom{i}")
+        faults = (FaultInjector(rate=spec.fault_rate)
+                  if spec.fault_rate > 0.0 else None)
+        # simulated in-process peers share the one copy each put makes
+        # (no wire encoding): a real peer's RAM costs this host no
+        # serialization or checksum work
+        transport = LoopbackTransport(hub, faults=faults,
+                                      latency_s_per_mb=spec.latency_s_per_mb,
+                                      zero_copy=spec.simulate_peers)
+        group = PeerGroup(node_id, spec.domain, hub=hub)
+        return PeerReplicaBackend(lower, transport, group,
+                                  replicas=spec.replicas,
+                                  window=spec.window,
+                                  max_retries=spec.max_retries,
+                                  own_transport=True)
+
     def build(self):
         """Backend stack + chain store + journal."""
         from repro_torch.checkpoint.store import CheckpointStore
         return CheckpointStore(self.root, backend=self.build_backend(),
-                               compact_every=self.compact_every)
+                               retention_fulls=self.retention_fulls,
+                               compact_every=self.compact_every,
+                               host_id=self.host_id)
 
     # ------------------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:

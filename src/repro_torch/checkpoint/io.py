@@ -309,10 +309,14 @@ def _fsync_dir(path: str) -> None:
 def atomic_write(path: str, write_fn) -> int:
     """Crash-safe file write: mkstemp in the target directory,
     ``write_fn(binary_file)``, flush+fsync, ``os.replace``, then fsync
-    the parent directory. Returns bytes written."""
+    the parent directory. Returns bytes written. The temporary file is
+    named ``<basename>.<random>.tmp``, so an orphan sweep can tell which
+    key a half-written file belongs to."""
     parent = os.path.dirname(path) or "."
     os.makedirs(parent, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=parent, suffix=".tmp")
+    fd, tmp = tempfile.mkstemp(dir=parent,
+                               prefix=os.path.basename(path) + ".",
+                               suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
             write_fn(f)

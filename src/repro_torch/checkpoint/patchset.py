@@ -122,6 +122,12 @@ class PatchSet:
     def __iter__(self) -> Iterator[str]:
         return iter(sorted(self._spans))
 
+    def __len__(self) -> int:
+        return len(self._spans)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._spans
+
     def __getitem__(self, name: str) -> Tuple[Span, ...]:
         return tuple(self._spans[name])
 
@@ -166,6 +172,34 @@ class PatchSet:
             ps._spans[name] = [Span(sp.start, np.array(np.asarray(sp.data)))
                                for sp in spans]
             ps._shapes[name] = self._shapes[name]
+        return ps
+
+    # -- wire form -----------------------------------------------------
+    def to_tree(self) -> dict:
+        """Serializable tree (dicts, lists, arrays) of the peer wire
+        protocol's range PATCH payload — the reference's layout, so a
+        framed PATCH crosses the packages."""
+        return {"__patchset__": 1,
+                "leaves": {name: {
+                    "shape": [int(x) for x in self._shapes[name]],
+                    "starts": np.asarray(
+                        [sp.start for sp in self._spans[name]], np.int64),
+                    "rows": [np.asarray(sp.data)
+                             for sp in self._spans[name]]}
+                    for name in self}}
+
+    @classmethod
+    def is_tree(cls, obj) -> bool:
+        return isinstance(obj, dict) and "__patchset__" in obj
+
+    @classmethod
+    def from_tree(cls, tree: dict) -> "PatchSet":
+        ps = cls()
+        for name, rec in tree["leaves"].items():
+            shape = tuple(int(x) for x in rec["shape"])
+            for s, r in zip(np.asarray(rec["starts"]).tolist(),
+                            rec["rows"]):
+                ps.add(name, int(s), np.asarray(r), shape)
         return ps
 
 

@@ -674,16 +674,17 @@ class RemoteObjectBackend(StorageBackend):
                 raise
         return None
 
-    def sweep_orphans(self, min_age_s: float = 60.0) -> int:
+    def sweep_orphans(self, min_age_s: float = 60.0, spare=()) -> int:
         """Reap chunk objects no committed index references: superseded
         generations a crashed re-put never swept, and uploads that died
-        before their commit point. Keys with a put in flight are
-        skipped (this backend is the single writer for its key space).
+        before their commit point. Keys with a put in flight (this
+        backend is the single writer for its key space) and the keys in
+        ``spare`` are skipped.
         Object stores expose no reliable mtime here, so ``min_age_s``
         is advisory only. Failures are harmless — orphans cost bucket
         bytes, never correctness."""
         with self._lock:
-            active = set(self._active_puts)
+            active = set(self._active_puts) | set(spare)
         by_key: Dict[str, List[str]] = {}
         for name in self.store.list_objects():
             if "/" not in name:

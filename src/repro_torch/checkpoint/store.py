@@ -1,9 +1,13 @@
 """Checkpoint chain store: full/diff/batch/patch semantics over a
-backend's tier stack (port of ``repro.checkpoint.store``; no GC,
-quarantine, peer adoption or maintenance service yet). The manifest
-journal lives under the backend's ``persist_root``, or only in this
-process (:class:`~repro_torch.checkpoint.journal.MemoryJournal`) when the
-backend has none.
+backend's tier stack (port of ``repro.checkpoint.store``). The manifest
+journal lives under the backend's ``persist_root`` — one journal, or with
+``host_id`` this host's segment of a
+:class:`~repro_torch.checkpoint.journal.SegmentedManifestJournal` — or
+only in this process (:class:`~repro_torch.checkpoint.journal.
+MemoryJournal`) when the backend has none. A backend with a peer tier
+taps every journal append (:class:`~repro_torch.checkpoint.journal.
+JournalTap`), so a replacement host can adopt the manifest from the
+peers (:meth:`CheckpointStore.adopt_peer_manifest`).
 
 Keys and manifest records are the reference's, so a chain written by
 either package recovers in the other::
@@ -21,6 +25,14 @@ chain on the base; the fold (:meth:`~CheckpointStore.fold_sync`) writes
 the merged chain into the base frame in place and retires it. A patch
 blob is durable and journaled before any fold touches the base, so a
 kill at any fold point recovers to the last committed persist.
+
+Chain-aware garbage collection keeps ``retention_fulls`` fulls and
+everything needed to replay from the oldest of them. Its mark phase
+(:meth:`CheckpointStore.gc_plan`) and sweep phase
+(:meth:`CheckpointStore.gc_apply`) are split so the maintenance service
+(:mod:`repro_torch.maintenance`) can journal its progress and sweep in
+slices; the scrubber's :meth:`CheckpointStore.quarantine` moves a corrupt
+blob's entry out of its chain. No sweep touches a key whose put runs.
 """
 from __future__ import annotations
 
@@ -32,7 +44,9 @@ import numpy as np
 
 from repro_torch.checkpoint import io as cio
 from repro_torch.checkpoint.backends import LocalFSBackend
-from repro_torch.checkpoint.journal import (ManifestJournal, MemoryJournal,
+from repro_torch.checkpoint.journal import (JournalTap, ManifestJournal,
+                                            MemoryJournal,
+                                            SegmentedManifestJournal,
                                             _entry_key)
 from repro_torch.checkpoint.patchset import (PatchSet, RowUpdate, Span,
                                              merge_span_chain)
@@ -108,25 +122,45 @@ def merge_updates(state, updates) -> None:
 
 class CheckpointStore:
     def __init__(self, root: Optional[str] = None, *, backend=None,
-                 compact_every: int = 256):
+                 retention_fulls: int = 0, compact_every: int = 256,
+                 host_id: Optional[str] = None):
         if backend is None:
             if root is None:
                 raise ValueError("CheckpointStore needs a root or a backend")
             backend = LocalFSBackend(root)
         self.backend = backend
         self.root = root if root is not None else backend.persist_root
+        self.retention_fulls = retention_fulls
+        self.host_id = host_id
         self._lock = threading.RLock()
         #: keys whose put runs or is not journaled yet: protected from
-        #: eviction whatever set another writer applies meanwhile
+        #: eviction, garbage collection and the orphan sweep whatever
+        #: another writer does meanwhile
         self._incoming: set = set()
-        self.journal = (ManifestJournal(backend.persist_root,
-                                        compact_every=compact_every)
-                        if backend.persist_root is not None
-                        else MemoryJournal())
+        if backend.persist_root is None:
+            self.journal = MemoryJournal()
+        elif host_id is not None:
+            self.journal = SegmentedManifestJournal(
+                backend.persist_root, host=host_id,
+                compact_every=compact_every)
+        else:
+            self.journal = ManifestJournal(backend.persist_root,
+                                           compact_every=compact_every)
+        # the peer tier replicates every manifest record: it taps the
+        # journal's appends, the journals stay unaware of it
+        tap = getattr(backend, "on_journal_append", None)
+        if tap is not None:
+            self.journal = JournalTap(self.journal, tap)
+        #: attached MaintenanceService (repro_torch.maintenance); None
+        #: runs GC and the fold synchronously
+        self.maintenance = None
+        self._maint_final = None
         from repro_torch.obs.metrics import InstrumentSet
         self._inst = InstrumentSet("store")
         self._bytes_written = self._inst.counter("bytes_written")
         self._writes = self._inst.counter("writes")
+        self._gc_deleted = self._inst.counter("gc_deleted")
+        self._quarantined = self._inst.counter("quarantined")
         self._write_time = self._inst.histogram("write_time_s")
         self._folds = self._inst.counter("folds")
         self._fold_bytes = self._inst.counter("fold_bytes")
@@ -144,6 +178,10 @@ class CheckpointStore:
     @property
     def writes(self) -> int:
         return int(self._writes.value)
+
+    @property
+    def gc_deleted(self) -> int:
+        return int(self._gc_deleted.value)
 
     @property
     def folds(self) -> int:
@@ -212,6 +250,8 @@ class CheckpointStore:
             entry["names"] = payload_names(state)
         self._record("fulls", entry, n)
         self._update_protected()
+        if self.retention_fulls:
+            self.request_gc()
         return key
 
     def save_patch(self, step: int, base_key: str, updates) -> str:
@@ -425,6 +465,59 @@ class CheckpointStore:
             f"none of {len(fulls)} full checkpoints is loadable "
             f"(last error: {last_err})")
 
+    # ------------------------------------------------------------------
+    # peer-manifest adoption (replacement-host recovery)
+    # ------------------------------------------------------------------
+    def adopt_peer_manifest(self, src: Optional[str] = None) -> int:
+        """Rebuild a dead host's manifest from the records its peers hold
+        (the peer tier replicates every journal append). With no local
+        full, the peers' records replay verbatim (add / del / replace in
+        order); with local fulls, only ``add`` records of unknown keys
+        are adopted, so peers never regress durable state. Adopted
+        entries are tagged ``tier="peer"`` (:func:`order_fulls` ranks
+        them below a durable full of the same state), bypass the tap (no
+        echo back to the peers), and entries reachable nowhere are
+        pruned. Returns the records applied; 0 without a peer tier."""
+        fetch = getattr(self.backend, "peer_manifest", None)
+        if fetch is None:
+            return 0
+        records = fetch(src)
+        applied = 0
+        with self._lock:
+            append = getattr(self.journal, "append_untapped",
+                             self.journal.append)
+            have_fulls = bool(self.manifest.get("fulls"))
+            known = {(kind, self._entry_key(e))
+                     for kind, entries in self.manifest.items()
+                     for e in entries if isinstance(e, dict)}
+            for _, _, rec in records:
+                op, kind = rec.get("op"), rec.get("kind")
+                entry, key = rec.get("entry"), rec.get("key")
+                if op == "add" and entry is not None:
+                    k = (kind, self._entry_key(entry))
+                    if k in known:
+                        continue
+                    e = dict(entry)
+                    e["tier"] = "peer"
+                    append("add", kind, entry=e)
+                    known.add(k)
+                    applied += 1
+                elif have_fulls:
+                    continue   # never let peers mutate durable state
+                elif op == "del" and key is not None:
+                    append("del", kind, key=key)
+                    known.discard((kind, key))
+                    applied += 1
+                elif op == "replace" and entry is not None:
+                    e = dict(entry)
+                    e["tier"] = "peer"
+                    append("replace", kind, key=key, entry=e)
+                    known.add((kind, self._entry_key(e)))
+                    applied += 1
+        self._prune_missing()
+        self._update_protected()
+        return applied
+
     def fold_plan(self):
         """Mark phase: ``(base_key, [patch keys in step order],
         state_step)`` for the newest foldable chain (an older full's
@@ -537,19 +630,199 @@ class CheckpointStore:
         return len(patch_keys)
 
     def request_fold(self) -> None:
-        """Fold the chain. The reference schedules it on its maintenance
-        service when one is attached; the port has none yet, so this is
-        the reference's synchronous fallback (run on the persist
-        thread, off the training loop)."""
+        """Fold the chain off the persist thread: on the attached
+        maintenance service (journaled, sliced, non-blocking) when one
+        runs, else synchronously."""
+        svc = self.maintenance
+        if svc is not None and svc.running:
+            svc.request_fold()
+            return
         self.fold_sync()
 
     # ------------------------------------------------------------------
+    # garbage collection: mark (plan) / sweep (apply)
+    # ------------------------------------------------------------------
+    def _keep(self, retention_fulls: Optional[int]) -> int:
+        return (self.retention_fulls if retention_fulls is None
+                else retention_fulls)
+
+    def gc_plan(self, retention_fulls: Optional[int] = None
+                ) -> List[Tuple[str, str]]:
+        """Mark phase, no I/O: the ``[(kind, key), ...]`` superseded by a
+        newer full. Keeps the newest ``retention_fulls`` fulls and every
+        differential, batch or patch that a chain from the oldest kept
+        full could replay (a batch straddling the cutoff is kept whole;
+        a patch goes with its base)."""
+        keep = self._keep(retention_fulls)
+        if keep < 1:
+            return []
+        doomed: List[Tuple[str, str]] = []
+        with trace_span("store.gc_plan", "maintenance") as sp, self._lock:
+            fulls = sorted(self.manifest["fulls"], key=lambda e: e["step"])
+            if len(fulls) <= keep:
+                return doomed
+            cutoff = fulls[-keep]["step"]
+            doomed_fulls = set()
+            for e in fulls[:-keep]:
+                doomed_fulls.add(self._entry_key(e))
+                doomed.append(("fulls", self._entry_key(e)))
+            for e in self.manifest["diffs"]:
+                if e["step"] <= cutoff:
+                    doomed.append(("diffs", self._entry_key(e)))
+            for e in self.manifest["batches"]:
+                if e["last"] <= cutoff:
+                    doomed.append(("batches", self._entry_key(e)))
+            for e in self.manifest.get("patches", []):
+                if e["step"] <= cutoff or e.get("base") in doomed_fulls:
+                    doomed.append(("patches", self._entry_key(e)))
+            sp.set(n=len(doomed))
+        return doomed
+
+    def _live_chain_keys(self, keep: int) -> set:
+        """Keys the newest ``keep`` chains still need: the kept fulls and
+        every diff/batch/patch replayable after the oldest of them."""
+        keys = set()
+        with self._lock:
+            fulls = sorted(self.manifest["fulls"], key=lambda e: e["step"])
+            retained = fulls[-max(keep, 1):]
+            if not retained:
+                return keys
+            cutoff = retained[0]["step"]
+            retained_keys = {self._entry_key(e) for e in retained}
+            keys.update(retained_keys)
+            keys.update(self._entry_key(e) for e in self.manifest["diffs"]
+                        if e["step"] > cutoff)
+            keys.update(self._entry_key(e) for e in self.manifest["batches"]
+                        if e["last"] > cutoff)
+            keys.update(self._entry_key(e)
+                        for e in self.manifest.get("patches", [])
+                        if e["step"] > cutoff
+                        and e.get("base") in retained_keys)
+        return keys
+
+    def gc_apply(self, doomed: List[Tuple[str, str]],
+                 retention_fulls: Optional[int] = None,
+                 crash_hook=None) -> Dict[str, int]:
+        """Sweep phase: journal the deletion, then delete the blob, per
+        marked ``(kind, key)``; idempotent, so a resumed slice re-runs
+        harmlessly. A key back in the newest kept chains since the plan
+        (a same-step re-put), or whose put runs now, is skipped. Blob
+        I/O runs outside the store lock. ``crash_hook(point, key)`` fires
+        between the journal record and the blob delete."""
+        live = self._live_chain_keys(self._keep(retention_fulls))
+        removed = {"fulls": 0, "diffs": 0, "batches": 0}
+        with trace_span("store.gc_apply", "maintenance", n=len(doomed)):
+            for kind, key in doomed:
+                if key in live:
+                    continue
+                with self._lock:
+                    if key in self._incoming:
+                        continue
+                    self.journal.append("del", kind, key=key)
+                if crash_hook is not None:
+                    crash_hook("gc:mid_delete", key)
+                self.backend.delete(key)
+                removed[kind] = removed.get(kind, 0) + 1
+                self._gc_deleted.add(1)
+        self._update_protected()
+        return removed
+
+    def gc(self, retention_fulls: Optional[int] = None) -> Dict[str, int]:
+        """Synchronous mark + sweep. Returns per-kind delete counts."""
+        doomed = self.gc_plan(retention_fulls)
+        if not doomed:
+            return ({} if self._keep(retention_fulls) < 1 else
+                    {"fulls": 0, "diffs": 0, "batches": 0})
+        return self.gc_apply(doomed, retention_fulls)
+
+    def request_gc(self, retention_fulls: Optional[int] = None):
+        """GC on the attached maintenance service (non-blocking) when one
+        runs, else a synchronous sweep."""
+        svc = self.maintenance
+        if svc is not None and svc.running:
+            svc.request_gc(retention_fulls)
+            return None
+        return self.gc(retention_fulls)
+
+    def scrub_targets(self) -> List[Tuple[str, str]]:
+        """Every chain entry as ``(kind, key)``, a snapshot under the
+        lock: what the scrubber walks and the peer prune keeps."""
+        with self._lock:
+            return [(kind, self._entry_key(e))
+                    for kind in CHAIN_KINDS
+                    for e in self.manifest.get(kind, [])]
+
+    def merge_journal(self):
+        """Fold the journal into its snapshot under the store lock (a
+        segmented journal merges every host's segment)."""
+        with self._lock:
+            self.journal.compact()
+
+    def sweep_orphans(self, min_age_s: float = 60.0) -> int:
+        """The backend's orphan sweep, sparing every key whose put runs
+        or is not journaled yet: a put can outlast any age gate (a
+        17 GB full through a remote tier takes about a minute)."""
+        with self._lock:
+            spare = set(self._incoming)
+        return self.backend.sweep_orphans(min_age_s, spare)
+
+    # ------------------------------------------------------------------
+    # quarantine (integrity scrubber)
+    # ------------------------------------------------------------------
+    def quarantine(self, kind: str, key: str, reason: str) -> bool:
+        """Move a corrupt blob's entry from its chain kind to the
+        ``quarantined`` list: recovery skips it (falls back to an older
+        full, or cuts the chain at the gap) instead of meeting the
+        corruption at restore time. The blob stays for forensics until
+        :meth:`drop_quarantined`."""
+        with self._lock:
+            entry = next((e for e in self.manifest.get(kind, [])
+                          if self._entry_key(e) == key), None)
+            if entry is None:
+                return False
+            self.journal.append("del", kind, key=key)
+            q = dict(entry)
+            q.update({"key": key, "src_kind": kind, "reason": reason})
+            self.journal.append("add", "quarantined", entry=q)
+        self._quarantined.add(1)
+        self._update_protected()
+        return True
+
+    def drop_quarantined(self) -> int:
+        """Delete quarantined blobs and their records. Returns count."""
+        with self._lock:
+            entries = list(self.manifest.get("quarantined", []))
+        n = 0
+        for e in entries:
+            key = self._entry_key(e)
+            with self._lock:
+                self.journal.append("del", "quarantined", key=key)
+            self.backend.delete(key)
+            n += 1
+        return n
+
+    # ------------------------------------------------------------------
     def flush(self, timeout: Optional[float] = None):
-        """Block until every accepted write is durable at the lowest
-        tier (a failed asynchronous write-back is re-raised here)."""
+        """Block until every accepted write is durable at the lowest tier
+        (a failed asynchronous write-back is re-raised here) and every
+        requested maintenance task has finished, within ``timeout``: a
+        task failure re-raises as ``CheckpointingError``."""
         self.backend.flush()
+        if self.maintenance is not None:
+            self.maintenance.drain(timeout)
+
+    def attach_maintenance(self, service):
+        """Attach (or detach with None) a MaintenanceService: retention
+        GC and the fold then run on it, ``flush`` drains it and
+        ``close`` stops it."""
+        self.maintenance = service
 
     def close(self):
+        svc, self.maintenance = self.maintenance, None
+        if svc is not None:
+            svc.stop()
+            # stats() keeps the service's final numbers after close
+            self._maint_final = svc.stats()
         self.backend.close()
         self.journal.close()
 
@@ -564,5 +837,10 @@ class CheckpointStore:
                     "folded_patches": self.folded_patches,
                     "chain_amplification": self.chain_amplification(),
                     "max_amplification": self.max_amplification,
+                    "gc_deleted": self.gc_deleted,
+                    "quarantined": len(self.manifest.get("quarantined", [])),
                     "journal": self.journal.stats(),
-                    "backend": self.backend.stats()}
+                    "backend": self.backend.stats(),
+                    "maintenance": (self.maintenance.stats()
+                                    if self.maintenance is not None
+                                    else self._maint_final)}

@@ -1,7 +1,8 @@
 """Engine configuration + factory (port of ``repro.core.engine``): every
 strategy of the reference — LowDiff, LowDiff+ and the paper's baselines
 (CheckFreq, Gemini, NaiveDC, FullSync) — over a store declared by a
-nested :class:`~repro_torch.checkpoint.config.StoreConfig`.
+nested :class:`~repro_torch.checkpoint.config.StoreConfig`, with the
+maintenance service attached when ``maintenance`` is on.
 
 :data:`FLAG_MAP` maps every launcher flag that configures the engine,
 the store or one of its tiers to its config field;
@@ -37,12 +38,18 @@ FLAG_MAP: Dict[str, tuple] = {
     "replay_window": ("engine", "replay_window"),
     "replay_device": ("engine", "replay_device"),
     "snapshot_shards": ("engine", "snapshot_shards"),
+    "maintenance": ("engine", "maintenance"),
+    "gc_slice": ("engine", "gc_slice"),
+    "merge_slice": ("engine", "merge_slice"),
+    "scrub_interval": ("engine", "scrub_interval"),
     "trace_out": ("engine", "trace_out"),
     "metrics_out": ("engine", "metrics_out"),
     "trace_buffer": ("engine", "trace_buffer"),
     "device": ("engine", "device"),
     "ckpt_dir": ("store", "root"),
     "format": ("store", "fmt"),
+    "retention": ("store", "retention_fulls"),
+    "host_id": ("store", "host_id"),
     "backend": ("store", "tiers"),          # legacy name -> tier list
     "shards": ("tier:sharded", "shards"),
     "memory_capacity_mb": ("tier:memory", "capacity_mb"),
@@ -51,6 +58,11 @@ FLAG_MAP: Dict[str, tuple] = {
     "chunk_mb": ("tier:remote", "chunk_mb"),
     "max_retries": ("tier:remote", "max_retries"),
     "remote_fault_rate": ("tier:remote", "fault_rate"),
+    "peers": ("tier:peer", "replicas"),
+    "peer_hub": ("tier:peer", "hub"),
+    "peer_domain": ("tier:peer", "domain"),
+    "peer_window": ("tier:peer", "window"),
+    "peer_fault_rate": ("tier:peer", "fault_rate"),
 }
 
 #: parser dests that are runtime inputs, not engine/store config
@@ -81,6 +93,10 @@ class EngineConfig:
     replay_window: int = 0
     replay_device: bool = False   #: stage compressed payloads on device
     snapshot_shards: int = 4
+    maintenance: bool = False     #: background GC/scrub/merge/fold service
+    gc_slice: int = 64            #: keys swept per journaled GC slice
+    merge_slice: int = 64         #: leaves patched per journaled fold slice
+    scrub_interval: float = 0.0   #: seconds between scrubs (0 = on demand)
     trace_out: Optional[str] = None
     metrics_out: Optional[str] = None
     trace_buffer: int = 65536
@@ -120,8 +136,9 @@ class EngineConfig:
         kw = {field: flag(dest, defaults[field])
               for dest, (scope, field) in FLAG_MAP.items()
               if scope == "engine"}
-        if isinstance(kw.get("replay_device"), str):
-            kw["replay_device"] = kw["replay_device"] == "on"
+        for b in ("maintenance", "replay_device"):   # on/off on the CLI
+            if isinstance(kw.get(b), str):
+                kw[b] = kw[b] == "on"
         root = flag("ckpt_dir", None)
         store = None
         if root:
@@ -135,16 +152,34 @@ class EngineConfig:
                 max_retries=flag("max_retries", 4),
                 remote_fault_rate=flag("remote_fault_rate", 0.0),
                 fmt=flag("format", "frame"),
-                eviction=flag("eviction", "fifo"))
+                retention_fulls=flag("retention", 0),
+                eviction=flag("eviction", "fifo"),
+                host_id=flag("host_id", None),
+                peers=flag("peers", 0),
+                peer_hub=flag("peer_hub", None),
+                peer_domain=flag("peer_domain", "d0"),
+                peer_window=flag("peer_window", 8),
+                peer_fault_rate=flag("peer_fault_rate", 0.0),
+                simulate_peers=True)
         cfg = cls(store=store, **kw)
         cfg.validate()
         return cfg
 
     def build_store(self):
-        """The configured store (None when none is configured)."""
+        """The configured store (None when none is configured); with
+        ``maintenance`` on, the background service is attached and
+        started (it first resumes any task a crash left journaled)."""
         if self.store is None:
             return None
-        return self.store.build()
+        store = self.store.build()
+        if self.maintenance:
+            from repro_torch.maintenance import MaintenanceService
+            svc = MaintenanceService(store, gc_slice=self.gc_slice,
+                                     merge_slice=self.merge_slice,
+                                     scrub_interval=self.scrub_interval)
+            store.attach_maintenance(svc)
+            svc.start()
+        return store
 
 
 def make_engine(cfg: EngineConfig, model, store=None):

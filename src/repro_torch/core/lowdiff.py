@@ -199,9 +199,11 @@ class LowDiff:
             pending.release()
 
     def flush(self, timeout: Optional[float] = None):
-        """Block until every queued differential/full write is durable.
-        A consumer failure re-raises as CheckpointingError; the wait is
-        bounded by ``timeout`` (default ``flush_timeout``)."""
+        """Block until every queued differential/full write is durable
+        and every pending maintenance task (GC, scrub, fold) has
+        drained. A consumer or maintenance failure re-raises as
+        CheckpointingError; the whole wait, the store's drain included,
+        is bounded by ``timeout`` (default ``flush_timeout``)."""
         t = timeout if timeout is not None else self.flush_timeout
         deadline = time.monotonic() + t
         t0 = time.perf_counter()

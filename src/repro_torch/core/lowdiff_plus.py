@@ -20,7 +20,8 @@ and each later one as a patch of what changed (whole leaves, or row
 spans with ``dirty_granularity="row"``, quantized to int8/int4 with
 error feedback under ``diff_quant``); every ``fold_interval`` patches
 (or when the chain reads ``fold_amplification`` times the base) the
-chain is folded into the base frame.
+chain is folded into the base frame: by the store's maintenance service
+when one is attached (journaled and sliced), else on the persist thread.
 
 Recovery: software failures restore from the replica; hardware failures
 reload the last persisted state (``store.load_latest_state``, or
@@ -558,13 +559,16 @@ class LowDiffPlus:
                 if self._since_fold < self.fold_interval:
                     self.adaptive_folds += 1   # amplification fired first
                 self._since_fold = 0
+                # off the persist thread: the maintenance service folds
+                # when one is attached
                 self.store.request_fold()
         self.persists += 1
 
     def flush(self, timeout: Optional[float] = None):
-        """Block until every enqueued gradient is applied to the replica
-        and every scheduled persist is durable. Consumer failures
-        re-raise here; the wait is deadline-bounded."""
+        """Block until every enqueued gradient is applied to the replica,
+        every scheduled persist is durable and every pending maintenance
+        task (the fold among them) has drained. Consumer and maintenance
+        failures re-raise here; the whole wait is deadline-bounded."""
         t = timeout if timeout is not None else self.flush_timeout
         deadline = time.monotonic() + t
         t0 = time.perf_counter()

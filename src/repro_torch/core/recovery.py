@@ -239,12 +239,11 @@ def replay_device(params, opt: AdamState, diffs: List[Tuple[int, Any]], *,
     Bit-identical to :func:`replay_serial`. A corrupt payload (one that
     raises :data:`CORRUPT_PAYLOAD` when staged or applied) cuts the
     chain there; a failed build or launch raises.
-    Returns (params, opt, applied)."""
-    if not diffs:
-        return params, opt, 0
+    Returns (params, opt, applied); with no differential, the full's
+    state uploaded to ``device``."""
     if window is not None and window < 0:
         raise ValueError("window must be None or >= 0")
-    w = int(window) if window else len(diffs)
+    w = int(window) if window else max(len(diffs), 1)
     dev, p_l, mu_l, nu_l, count = _start(params, opt, device)
     applied = 0
     for i in range(0, len(diffs), w):
@@ -355,12 +354,11 @@ def replay_parallel(params, opt: AdamState, diffs: List[Tuple[int, Any]], *,
     :data:`SCRATCH_BYTES` whatever the chain's length; ``window`` bounds
     the staged payloads, and windows chain exactly through (params, mu,
     nu, count). A payload that fails its checks cuts the chain there.
-    Returns (params, opt, applied)."""
-    if not diffs:
-        return params, opt, 0
+    Returns (params, opt, applied); with no differential, the full's
+    state uploaded to ``device``."""
     if window is not None and window < 0:
         raise ValueError("window must be None or >= 0")
-    w = int(window) if window else len(diffs)
+    w = int(window) if window else max(len(diffs), 1)
     dev, p_l, mu_l, nu_l, count = _start(params, opt, device)
     applied = 0
     for i in range(0, len(diffs), w):

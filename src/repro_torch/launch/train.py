@@ -29,6 +29,9 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch gpt2-l --reduced --steps 8 --full-interval 4 --fail-at 7 \\
         --backend remote --remote-url fake://bkt --remote-fault-rate 0.05
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch gpt2-l --reduced --steps 10 --full-interval 3 --fail-at 8 \\
+        --maintenance on --retention 1 --peers 2 --host-id h0
 """
 from __future__ import annotations
 
@@ -199,9 +202,33 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--remote-fault-rate", type=float, default=0.0,
                     help="injected transient-fault probability on fake:// "
                          "stores (exercises retry/backoff)")
+    ap.add_argument("--peers", type=int, default=0,
+                    help="replicate every blob to this many failure-domain-"
+                         "diverse peer hosts' memory (0 = off); a "
+                         "single-process run simulates the peers in "
+                         "process")
+    ap.add_argument("--peer-hub", default=None,
+                    help="peer membership group name; hosts sharing a hub "
+                         "replicate to each other (default: 'default')")
+    ap.add_argument("--peer-domain", default="d0",
+                    help="failure domain of this host (rack/pod); peer "
+                         "selection prefers one replica per domain")
+    ap.add_argument("--peer-window", type=int, default=8,
+                    help="max in-flight peer replication sends before "
+                         "put() backpressures")
+    ap.add_argument("--peer-fault-rate", type=float, default=0.0,
+                    help="injected transient-fault probability on peer "
+                         "sends (exercises retry/backoff)")
+    ap.add_argument("--retention", type=int, default=0,
+                    help="keep this many full checkpoints + their chains "
+                         "(0 = never garbage-collect)")
     ap.add_argument("--eviction", choices=("fifo", "lru"), default="fifo",
                     help="memory-tier eviction policy over size-class "
                          "buckets; lru refreshes recency on recovery reads")
+    ap.add_argument("--maintenance", choices=("on", "off"), default="off",
+                    help="background maintenance service: journaled, "
+                         "resumable GC, integrity scrub and fold off the "
+                         "persist threads (off = synchronous GC and fold)")
     ap.add_argument("--persist-mode", choices=("full", "incremental"),
                     default="full",
                     help="lowdiff_plus persistence: 'full' rewrites the "
@@ -235,6 +262,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "base frame bytes reach this ratio (0 = "
                          "disable the adaptive trigger; --fold-interval "
                          "stays as the hard cap)")
+    ap.add_argument("--merge-slice", type=int, default=64,
+                    help="leaves patched per journaled fold slice "
+                         "(bounded work between progress records)")
     ap.add_argument("--replay-window", type=int, default=0,
                     help="differentials per replay window: bounds the "
                          "compressed payloads staged on the device by "
@@ -250,6 +280,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--snapshot-shards", type=int, default=4,
                     help="full snapshots land in this many shards, each "
                          "shard's device buffers released as it lands")
+    ap.add_argument("--gc-slice", type=int, default=64,
+                    help="keys swept per journaled GC slice (bounded "
+                         "work between progress records)")
+    ap.add_argument("--scrub-interval", type=float, default=0.0,
+                    help="seconds between background integrity scrubs "
+                         "(0 = scrub only on demand)")
+    ap.add_argument("--host-id", default=None,
+                    help="journal segment id for multi-controller jobs: "
+                         "each host appends to its own manifest segment, "
+                         "merged deterministically on read and compaction")
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome trace_event JSON of the pipeline "
                          "spans here; also enables the span tracer")

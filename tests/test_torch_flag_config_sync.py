@@ -1,6 +1,6 @@
 """Guard: the port's training flags and its engine configuration cannot
-drift apart, and its LowDiff+ and storage-tier flags keep the
-reference's defaults and choices. Every ``repro_torch.launch.train``
+drift apart, and its LowDiff+, storage-tier, maintenance and peer flags
+keep the reference's defaults and choices. Every ``repro_torch.launch.train``
 flag is a runtime input (``RUNTIME_FLAGS``) or maps to a field of
 ``EngineConfig``, ``StoreConfig`` or a ``TierSpec`` through
 ``FLAG_MAP``, and every ``FLAG_MAP`` entry names a real flag."""
@@ -9,6 +9,7 @@ import dataclasses
 import pytest
 
 from repro.core.engine import EngineConfig as ReferenceEngineConfig
+from repro.core.engine import FLAG_MAP as REFERENCE_FLAG_MAP
 from repro.core.engine import STRATEGIES as REFERENCE_STRATEGIES
 from repro.launch.train import build_parser as reference_parser
 from repro_torch.checkpoint.config import StoreConfig, TierSpec
@@ -25,6 +26,10 @@ LOWDIFF_PLUS_FLAGS = ("persist_mode", "persist_threshold",
 TIER_FLAGS = ("backend", "format", "shards", "memory_capacity_mb",
               "eviction", "remote_url", "chunk_mb", "max_retries",
               "remote_fault_rate")
+#: the eleven flags of the maintenance service, GC and the peer tier
+MAINTENANCE_FLAGS = ("retention", "maintenance", "gc_slice", "merge_slice",
+                     "scrub_interval", "host_id", "peers", "peer_hub",
+                     "peer_domain", "peer_window", "peer_fault_rate")
 
 
 def _actions(parser):
@@ -50,11 +55,15 @@ def test_flag_targets_a_config_field_with_its_default(dest):
             assert STORE_FIELDS[field].default == default
         return
     if scope.startswith("tier:"):
-        assert scope[len("tier:"):] in ("memory", "sharded", "remote")
-        assert TIER_FIELDS[field].default == default
+        assert scope[len("tier:"):] in ("peer", "memory", "sharded",
+                                        "remote")
+        # --peers counts the replicas and 0 means no peer tier: only a
+        # positive count builds the tier, whose replicas default is 2
+        if dest != "peers":
+            assert TIER_FIELDS[field].default == default
         return
     assert scope == "engine" and field in FIELDS
-    if dest == "replay_device":
+    if dest in ("replay_device", "maintenance"):
         default = default == "on"
     assert FIELDS[field].default == default
 
@@ -77,6 +86,34 @@ def test_tier_flags_match_the_reference(dest):
     assert mine.choices == ref.choices
     assert mine.type == ref.type
     assert mine.option_strings == ref.option_strings
+
+
+@pytest.mark.parametrize("dest", MAINTENANCE_FLAGS)
+def test_maintenance_flags_match_the_reference(dest):
+    mine = _actions(build_parser())[dest]
+    ref = _actions(reference_parser())[dest]
+    assert mine.default == ref.default
+    assert mine.choices == ref.choices
+    assert mine.type == ref.type
+    assert mine.option_strings == ref.option_strings
+    assert FLAG_MAP[dest] == REFERENCE_FLAG_MAP[dest]
+
+
+def test_maintenance_flags_reach_the_engine_and_store(tmp_path):
+    argv = ["--ckpt-dir", str(tmp_path), "--backend", "memory",
+            "--memory-capacity-mb", "64", "--peers", "2", "--peer-hub",
+            "hub1", "--peer-domain", "rack1", "--peer-window", "4",
+            "--peer-fault-rate", "0.1", "--retention", "3",
+            "--maintenance", "on", "--gc-slice", "5", "--merge-slice", "6",
+            "--scrub-interval", "2.5", "--host-id", "hostA"]
+    mine = EngineConfig.from_args(build_parser().parse_args(argv))
+    ref = ReferenceEngineConfig.from_args(reference_parser().parse_args(argv))
+    assert (mine.maintenance, mine.gc_slice, mine.merge_slice,
+            mine.scrub_interval) == (ref.maintenance, ref.gc_slice,
+                                     ref.merge_slice, ref.scrub_interval) \
+        == (True, 5, 6, 2.5)
+    assert mine.store.to_dict() == ref.store.to_dict()
+    assert [t.kind for t in mine.store.tiers] == ["peer", "memory", "local"]
 
 
 @pytest.mark.parametrize("argv", [

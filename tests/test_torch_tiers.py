@@ -567,25 +567,30 @@ def test_validation_names_the_same_field_as_the_reference(i):
 
 @pytest.mark.parametrize("build,field", [
     (lambda: StoreConfig("/t", tiers=[TierSpec("peer", replicas=2),
-                                      TierSpec("local")]).validate(),
+                                      TierSpec("local")]),
      "tiers[0].kind"),
     (lambda: StoreConfig.from_legacy("/t", peers=2), "tiers[0].kind"),
     (lambda: StoreConfig.from_dict({"root": "/t", "tiers": [
         {"kind": "peer", "hub": "h"}, {"kind": "local"}]}), "tiers[0].kind"),
-    (lambda: StoreConfig("/t", retention_fulls=2).validate(),
-     "retention_fulls"),
+    (lambda: StoreConfig("/t", retention_fulls=2), "retention_fulls"),
     (lambda: StoreConfig.from_legacy("/t", retention_fulls=1),
      "retention_fulls"),
-    (lambda: StoreConfig("/t", host_id="h0").validate(), "host_id"),
+    (lambda: StoreConfig("/t", host_id="h0"), "host_id"),
     (lambda: StoreConfig.from_legacy("/t", host_id="h1"), "host_id"),
 ])
 def test_unported_settings_are_refused(build, field):
-    """The reference accepts these; the port names the field and the
-    ROADMAP item that ports it, and builds nothing."""
-    with pytest.raises(StoreConfigError) as ei:
-        build()
-    assert str(ei.value).startswith(field)
-    assert "ROADMAP §1 item 5" in str(ei.value)
+    """The settings that slice 5 refused (the peer tier, retention, the
+    host id of the segmented journal) are ported: each validates, sets
+    its field, and gives the reference's configuration dict."""
+    cfg = build()
+    cfg.validate()
+    value = {"tiers[0].kind": lambda: cfg.tiers[0].kind,
+             "retention_fulls": lambda: cfg.retention_fulls,
+             "host_id": lambda: cfg.host_id}[field]()
+    assert value in ("peer", 1, 2, "h0", "h1")
+    ref = JaxStoreConfig.from_dict(cfg.to_dict())
+    assert ref.to_dict() == cfg.to_dict()
+    assert StoreConfig.from_dict(ref.to_dict()) == cfg
 
 
 def test_make_backend_shim_composes_the_legacy_stacks(tmp_path):
