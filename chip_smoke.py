@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py            # every phase, full-width gpt2-l
+    python3 chip_smoke.py --only families    # the build and phase I
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -44,9 +45,9 @@ A. hold K5-K7 (the int8/int4 row-span codec) against their plain
 4. three ``--strategy none`` (dense) steps, which launch K3; K3 is held
    to its plain version on the last step's leaves;
 B. drive the LowDiff+ path: ``LowDiffPlus`` (incremental, row, int4
-   with int8 moments) on gpt2-l at full width, cut in depth to 12 of its
+   with int8 moments) on gpt2-l at full width, cut in depth to 6 of its
    36 layers (its host-bound numpy replica dominated the script at full
-   depth), for 3 steps (one full, two quantized patches), flush; require
+   depth; 12 layers until phase I came), for 3 steps (one full, two quantized patches), flush; require
    software recovery == the replica bitwise, ``load_state_device`` (K7)
    == ``load_latest_state`` bitwise, every recovered value within one
    quantization step of the replica, and K7 launched;
@@ -86,7 +87,8 @@ G. the storage tiers: LowDiff top-k + EF (K1, K2, K4) through stores
    C's chain; one ``[tier]`` line per stack (full put ms, write-back and
    flush ms, bytes, evictions, chunks, retries, recovery ms, peak RSS);
 H. maintenance, journal segments and the peer tier: H1 LowDiff (f=2,
-   b=2, steps 2..5) on full gpt2-l through ``EngineConfig(maintenance=
+   b=2, steps 2..5) on gpt2-l at full width cut to 12 of 36 layers (full
+   depth until phase I came) through ``EngineConfig(maintenance=
    True).build_store()`` over ``StoreConfig(tiers=[peer(replicas=2,
    simulate_peers=True), local], retention_fulls=1, host_id="h0")``:
    after ``flush()`` the service's GC has removed full 2's chain from
@@ -106,6 +108,23 @@ H. maintenance, journal segments and the peer tier: H1 LowDiff (f=2,
    One ``[maint]`` line each (GC plan/sweep ms and keys, scrub ms and
    bytes, ``flush()`` ms, bytes replicated, acks, ``peer_reads``,
    recovery ms from peers and from the local tier, peak RSS);
+I. the other model families at full width (``FAMILIES``), each through
+   phase C's path with top-k (LowDiff + EF, f=4, b=2, resumed at step 3:
+   a full at step 4 and 3 differentials; failure; device replay bitwise
+   equal to the trained state; K4 and K2 held on the last step's own
+   leaves and payload, K1 on the run's own EF residual): DeepSeekMoE cut
+   to 2 of 28 layers (bf16, grad_accum 2, 64 routed experts, capacity 16
+   at 128 tokens a micro-batch, so the router drops; its parallel replay
+   too, within tolerance), Hymba cut to 8 of 32 layers with global
+   attention at layers 0, 3 and 7 (batch 2 x seq 2048: the 1024-token
+   window binds, the Mamba scan runs 16 chunks), xLSTM at full depth
+   (batch 4 x seq 256: 2 mLSTM chunks), Pixtral cut to 1 of 40 layers
+   (bf16, grad_accum 2, 32 patches) and Seamless at full depth (16
+   source frames). One ``[family]`` line each (config and cut, params,
+   state bytes, median step ms, payload bytes, recovery ms, peak device
+   memory, K1/K2/K4 launches). Qwen3-MoE stays off the card (one
+   full-width layer is 3.73 B params); ``--only families`` runs the
+   build and this phase alone;
 5. print the ``kernels`` JSON line, the card's name and power limit,
    and the result line.
 
@@ -999,7 +1018,14 @@ def _small_reference_check(dev, compressor: str = "topk", cfg=None):
     default): one lowdiff step on the card (kernels) against the same
     step on the CPU (plain versions), from the same params/batch. The
     gradients round differently on the two devices, so a near-tie may
-    flip a top-k pick or an int8 code: >= 99.9% must agree."""
+    flip a top-k pick or an int8 code: >= 99.9% must agree. With top-k
+    a block whose picks differ also counts as agreeing when it is a
+    near-tie on the CPU's own gradient: each pick of the card within
+    1e-3 (relative) of the CPU's k-th largest corrected magnitude or
+    above it. (A reduced model has ~2,000 blocks, so 99.9% allows one
+    flip; xLSTM's 64-step sLSTM recurrence rounds differently enough on
+    the two devices to flip a few blocks whose k-th and (k+1)-th
+    magnitudes nearly tie.)"""
     import torch
     from repro_torch import tree_leaves
     from repro_torch.compression.sparse import is_compressed
@@ -1020,21 +1046,41 @@ def _small_reference_check(dev, compressor: str = "topk", cfg=None):
     lc, lg = float(m_cpu["loss"]), float(m_gpu["loss"])
     if not (math.isfinite(lg) and abs(lc - lg) <= 1e-4 * abs(lc)):
         fail(f"reduced-step loss card {lg} vs cpu {lc}")
-    agree = tot = 0
+    agree = tot = near = 0
     what = "int8 codes" if compressor == "quant8" else "top-k rows"
-    for a, b_ in zip(tree_leaves(cg_cpu, is_leaf=is_compressed),
-                     tree_leaves(cg_gpu, is_leaf=is_compressed)):
+    efs = (tree_leaves(s_cpu["ef"]) if compressor == "topk"
+           else [None] * len(tree_leaves(cg_cpu, is_leaf=is_compressed)))
+    for a, b_, e in zip(tree_leaves(cg_cpu, is_leaf=is_compressed),
+                        tree_leaves(cg_gpu, is_leaf=is_compressed), efs):
         if compressor == "quant8":
             same = a.q == b_.q.cpu()
         else:
             same = (a.indices == b_.indices.cpu()).all(dim=1)
         agree += int(same.sum())
         tot += same.numel()
-    if agree < 0.999 * tot:
-        fail(f"reduced {compressor} step: {what} agree {agree}/{tot}")
+        if e is not None and not bool(same.all()):
+            near += _near_ties(a, b_.indices.cpu(), e, ~same)
+    if agree + near < 0.999 * tot:
+        fail(f"reduced {compressor} step: {what} agree {agree}/{tot} "
+             f"({near} of the others near-ties)")
     log(f"[reference] reduced {cfg.name} (grad_accum {cfg.grad_accum}) "
         f"{compressor} step card vs cpu: loss {lg:.6f} vs {lc:.6f}, {what} "
-        f"agree {agree}/{tot}")
+        f"agree {agree}/{tot}"
+        f"{f' (+{near} near-ties)' if near else ''}")
+
+
+def _near_ties(sg, card_idx, ef, rows, rel: float = 1e-3) -> int:
+    """Of the blocks ``rows`` where the card picked ``card_idx`` and the
+    CPU ``sg``, how many are near-ties on the CPU: the corrected
+    gradient (its new residual ``ef`` plus its picks) puts every pick of
+    the card within ``rel`` of the k-th largest magnitude or above."""
+    from repro_torch.kernels import ref
+    corr = (ref.to_blocks(ef, 1024)[0].float()
+            + ref.topk_scatter_ref(sg.values, sg.indices, 1024).float())
+    mag = corr[rows].abs()
+    kth = mag.topk(sg.indices.shape[1], dim=1).values[:, -1]
+    picked = mag.gather(1, card_idx[rows].long()).min(dim=1).values
+    return int((picked >= kth * (1 - rel)).sum())
 
 
 def _to(tree, dev):
@@ -1122,16 +1168,21 @@ PATH_KERNELS = {"topk": ("topk_select", "topk_scatter", "topk_apply"),
 
 def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
                steps: int = 20, start: int = 19, full_interval: int = 20,
-               tag: str = ""):
+               tag: str = "", batch: int = 4, seq: int = 64,
+               parallel: bool = True, stats: dict = None):
     """LowDiff with ``compressor`` on the model of ``cfg`` (full width;
-    gpt2-l in phases 3, C, D, granite in phase F), resumed at step
-    ``start``: ``steps`` steps write a full at the first multiple of
+    gpt2-l in phases 3, C, D, granite in phase F, the other families in
+    phase I) on ``batch`` x ``seq`` batches, resumed at step ``start``:
+    ``steps`` steps write a full at the first multiple of
     ``full_interval`` and the differentials after it; then fail, recover
-    by device replay (bitwise) and by parallel replay (within the
-    reassociation tolerance), and require the compressor's kernels to
-    have launched. With top-k, K4 and K2 are also held against their
-    plain versions on the last step's own leaves and payload. Returns (launch counts of this run, payload bytes of the
-    last step)."""
+    by device replay (bitwise) and, with ``parallel``, by parallel
+    replay (within the reassociation tolerance), and require the
+    compressor's kernels to have launched. With top-k, K4 and K2 are
+    also held against their plain versions on the last step's own leaves
+    and payload. Returns (launch counts of this run, payload bytes of
+    the last step); ``stats`` (a dict) receives the state bytes, the
+    step times, the training and recovery peaks of device memory and the
+    recovery times."""
     import torch
     from repro_torch import tree_leaves
     from repro_torch.checkpoint.config import StoreConfig
@@ -1151,8 +1202,8 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
     log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
         f"{model.n_params()} params; LowDiff {compressor} rho=0.01"
         f"{'' if compressor == 'quant8' else ' + EF'}, f={full_interval}, "
-        f"b=2, batch 4 x seq 64, steps {start + 1}..{fail_at}, device "
-        f"replay then parallel replay")
+        f"b=2, batch {batch} x seq {seq}, steps {start + 1}..{fail_at}, "
+        f"device replay{' then parallel replay' if parallel else ''}")
     TRACER.clear()
     TRACER.enable()
     store = StoreConfig(ckdir).build()
@@ -1162,8 +1213,11 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
                     flush_timeout=3600.0)
     state = init_state(model, 0, device=dev)
     state["step"] = torch.tensor(start, dtype=torch.int32, device=dev)
-    stream = TokenStream(cfg, 64, 4, seed=0, device=dev)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    stream = TokenStream(cfg, seq, batch, seed=0, device=dev)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     build.reset_launches()
     step_ms, losses, diff_bytes, last = [], [], [], []
     orig_step = strat.step_fn
@@ -1182,6 +1236,7 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
         torch.cuda.current_stream(dev).synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
+    train_peak = torch.cuda.max_memory_allocated(dev)
     if not all(math.isfinite(l) for l in losses):
         fail(f"non-finite loss {losses}")
     log(f"{tag} step_ms={[round(s, 3) for s in step_ms]} "
@@ -1231,9 +1286,16 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
         f"full_bytes={store.manifest['fulls'][0]['bytes']} "
         f"copy_meter={COPY_METER.stats()}")
 
+    if stats is not None:
+        stats.update(state_bytes=state_bytes, step_ms=step_ms,
+                     train_peak=train_peak, rec_ms=rec_ms,
+                     rec_peak=rec_peak, losses=losses)
     # the default recovery: parallel replay of the same chain
     del state, recovered
     torch.cuda.empty_cache()
+    if not parallel:
+        del trained
+        return _main_done(strat, ckdir, tag, compressor), diff_bytes[-1]
     strat.replay_device = False
     if not strat.parallel_recovery:
         fail("LowDiff's default recovery is not parallel replay")
@@ -1258,16 +1320,27 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
         f"recovery_ms={rec_ms:.1f}, peak {rec_peak} B); within the "
         f"reassociation tolerance of the trained state (largest ratio "
         f"{ratio:.4f})")
+    if stats is not None:
+        stats.update(par_ms=par_ms, par_peak=par_peak, par_ratio=ratio)
+    del state, trained
+    return _main_done(strat, ckdir, tag, compressor), diff_bytes[-1]
+
+
+def _main_done(strat, ckdir: str, tag: str, compressor: str) -> dict:
+    """End of ``phase_main``: the path's launch counts, each of the
+    compressor's kernels required to have launched; the store closed
+    and removed."""
+    import torch
+    from repro_torch.kernels import build
     launches = dict(build.LAUNCHES)
     log(f"{tag} launches: {launches}")
     for k in PATH_KERNELS[compressor]:
         if launches[k] <= 0:
             fail(f"the {compressor} path did not launch {k}")
     strat.close()
-    del state, trained, strat
     shutil.rmtree(ckdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches, diff_bytes[-1]
+    return launches
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1862,6 +1935,77 @@ def phase_accum(dev, ckdir: str):
     return lg, ls
 
 
+# ---------------------------------------------------------------- phase I
+#: phase I: (tag, arch, depth cut (config fields), batch, seq, parallel
+#: replay too). Each is the reference's config at full width.
+FAMILIES = (
+    # 2 of 28 layers: 1.60 B params with the embeddings, 22.3
+    # GB of state; 128 tokens a micro-batch give capacity 16, so the
+    # router drops; parallel replay meets the 4-D expert leaves
+    ("[moe]", "deepseek-moe-16b", {"n_layers": 2}, 4, 64, True),
+    # 8 of 32 layers; the reference's global layers (0, 15, 31) index
+    # past the cut stack. seq 2048 > the 1024 window, 16 Mamba chunks
+    ("[hybrid]", "hymba-1.5b",
+     {"n_layers": 8, "global_attn_layers": (0, 3, 7)}, 2, 2048, False),
+    # full depth (24 blocks); seq 256 carries the mLSTM across 2 chunks
+    ("[ssm]", "xlstm-350m", {}, 4, 256, False),
+    # 1 of 40 layers: the projector and the masked patches are new
+    ("[vlm]", "pixtral-12b", {"n_layers": 1}, 4, 64, False),
+    # full depth (12 + 12 layers), 16 source frames
+    ("[audio]", "seamless-m4t-medium", {}, 4, 64, False),
+)
+
+
+def phase_families(dev, ckdir: str):
+    """Phase I: every other model family of the registry at full width
+    (``FAMILIES``: the depth cuts and why) through phase C's path with
+    top-k: LowDiff + EF, f=4, b=2, resumed at step 3 (a full at step 4,
+    3 differentials), failure, device replay bitwise equal to the
+    trained state (and DeepSeekMoE's parallel replay within its
+    tolerance), K4 and K2 held against their plain versions on the last
+    step's own leaves and payload, K1 on the run's own EF residual.
+    Qwen3-MoE stays off the card: one full-width layer is 3.73 B params.
+    One line per family. Returns the summed launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import DTYPES
+    from repro_torch.models.registry import build_model
+    total = {k: 0 for k in PATH_KERNELS["topk"]}
+    for tag, arch, cut, batch, seq, parallel in FAMILIES:
+        full = get_config(arch)
+        cfg = full.replace(**cut)
+        n = build_model(cfg).n_params()
+        t0 = time.perf_counter()
+        stats = {}
+        got, payload = phase_main(cfg, dev, ckdir, "topk", steps=4, start=3,
+                                  full_interval=4, tag=tag, batch=batch,
+                                  seq=seq, parallel=parallel, stats=stats)
+        for k in total:
+            total[k] += got[k]
+        depth = (f"cut to {cfg.n_layers} of {full.n_layers} layers"
+                 if cfg.n_layers != full.n_layers else
+                 f"{cfg.n_layers}{f' + {cfg.n_encoder_layers}' if cfg.n_encoder_layers else ''} layers (full depth)")
+        par = (f" parallel_recovery_ms={stats['par_ms']:.1f} (ratio "
+               f"{stats['par_ratio']:.4f}, peak {stats['par_peak']} B)"
+               if parallel else "")
+        log(f"[family] {tag} {arch}: d={cfg.d_model}, {depth}"
+            f"{' ' + str(dict(cut)) if cut else ''}, {cfg.param_dtype} "
+            f"params, grad_accum {cfg.grad_accum}, batch {batch} x seq "
+            f"{seq}; {n} params, state {stats['state_bytes']} B "
+            f"({DTYPES[cfg.param_dtype].itemsize} + 12 B a param); "
+            f"median step ms after the first "
+            f"{statistics.median(stats['step_ms'][1:]):.1f}; payload "
+            f"{payload} B; recovery_ms={stats['rec_ms']:.1f} (device "
+            f"replay, bitwise){par}; peak device memory training "
+            f"{stats['train_peak']} B, recovery {stats['rec_peak']} B above "
+            f"the trained copy; K1/K2/K4 launches {got['topk_select']}/"
+            f"{got['topk_scatter']}/{got['topk_apply']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        _release_pinned()
+        torch.cuda.empty_cache()
+    return total
+
+
 # ---------------------------------------------------------------- phase G
 class _RssPeak:
     """Peak resident set of this process while the ``with`` block runs,
@@ -2155,7 +2299,7 @@ def _flip_byte(path: str) -> int:
 
 
 def _maint_h1(cfg, dev, ckdir: str, rss):
-    """H1: full gpt2-l, LowDiff (f 2, b 2, steps 2..5: full 2, batch 2-3,
+    """H1: gpt2-l (``cfg``), LowDiff (f 2, b 2, steps 2..5: full 2, batch 2-3,
     full 4, batch 4-5) through a peer tier (2 simulated peers) over local
     frames with retention 1, host id h0 and the maintenance service;
     then GC, peer prune, an on-demand scrub, recovery from the local
@@ -2355,14 +2499,16 @@ def _maint_h2(cfg, dev, ckdir: str, rss):
 
 def phase_maint(dev, ckdir: str):
     """Phase H: the maintenance service, the segmented journal and the
-    peer tier (H1 full gpt2-l, H2 and H3 gpt2-l cut to 4 of 36 layers).
-    Returns the summed K1/K2/K4/K7 launches of their paths."""
+    peer tier (H1 gpt2-l cut to 12 of 36 layers, H2 and H3 to 4; H1 ran
+    at full depth until phase I needed the script's time). Returns the
+    summed K1/K2/K4/K7 launches of their paths."""
     import torch
     from repro_torch.configs import get_config
     gpt2 = get_config("gpt2-l")
     cut = gpt2.replace(n_layers=4)
     total = {k: 0 for k in PATH_KERNELS["topk"] + ("quant_span_apply",)}
-    for fn, cfg in ((_maint_h1, gpt2), (_maint_h2, cut)):
+    for fn, cfg in ((_maint_h1, gpt2.replace(n_layers=12)),
+                    (_maint_h2, cut)):
         shutil.rmtree(ckdir, ignore_errors=True)
         _release_pinned()
         t0 = time.perf_counter()
@@ -2469,7 +2615,9 @@ KERNELS = [
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("all", "kernels"), default="all")
+    ap.add_argument("--only", choices=("all", "kernels", "families"),
+                    default="all", help="kernels: stop after phase A; "
+                    "families: the build and phase I alone")
     ap.add_argument("--profile", action="store_true",
                     help="also profile warm lowdiff and dense steps")
     ap.add_argument("--ckpt-dir", default=os.path.join(HERE, "build",
@@ -2498,6 +2646,12 @@ def main() -> int:
     cfg = get_config("gpt2-l")
 
     phase_build()
+    if args.only == "families":
+        got = phase_families(dev, args.ckpt_dir)
+        log(f"[done] build + phase I passed in "
+            f"{time.perf_counter() - t_all:.1f} s; launches {got}")
+        print(smi, flush=True)
+        return 0
     res = phase_parity(cfg, dev)
     res.update(phase_compressors(cfg, dev))
     log(f"[time] build + phase 2: {time.perf_counter() - t_all:.1f} s")
@@ -2517,10 +2671,11 @@ def main() -> int:
         got, dense_ms = phase_dense(cfg, dev)
         launches["adam_tile_update"] = got["adam_tile_update"]
         log(f"[time] + phases 3, 4: {time.perf_counter() - t_all:.1f} s")
-        # at full width, cut in depth to 12 of 36 layers: the host-bound
-        # numpy replica takes most of the script's time at full depth
+        # at full width, cut in depth to 6 of 36 layers: the host-bound
+        # numpy replica takes most of the script's time at full depth,
+        # and phase I needs the time
         launches["quant_span_apply"] = phase_lowdiff_plus(
-            cfg.replace(n_layers=12), dev,
+            cfg.replace(n_layers=6), dev,
             args.ckpt_dir)["quant_span_apply"]
         log(f"[time] + phase B: {time.perf_counter() - t_all:.1f} s")
         _release_pinned()
@@ -2553,6 +2708,10 @@ def main() -> int:
         for k, v in got.items():
             launches[k] += v
         log(f"[time] + phase H: {time.perf_counter() - t_all:.1f} s")
+        got = phase_families(dev, args.ckpt_dir)
+        for k in PATH_KERNELS["topk"]:
+            launches[k] += got[k]
+        log(f"[time] + phase I: {time.perf_counter() - t_all:.1f} s")
     if args.profile:
         phase_profile(cfg, dev)
     kernels = []

@@ -1,5 +1,5 @@
-"""Config registry: ``get_config(arch_id)`` for the ported architectures
-(the dense decoder LMs of the main path) + the assigned input shapes."""
+"""Config registry: ``get_config(arch_id)`` for every architecture of
+the reference's registry + the assigned input shapes."""
 from __future__ import annotations
 
 import importlib
@@ -8,12 +8,20 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig, INPUT_SHAPES  # no
 
 # arch-id -> module name
 _REGISTRY = {
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "pixtral-12b": "pixtral_12b",
     "qwen2-1.5b": "qwen2_1_5b",
     "stablelm-1.6b": "stablelm_1_6b",
+    "xlstm-350m": "xlstm_350m",
     "granite-3-8b": "granite_3_8b",
     "llama3-405b": "llama3_405b",
+    "hymba-1.5b": "hymba_1_5b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "gpt2-l": "gpt2_l",
 }
+
+ASSIGNED_ARCHS = tuple(k for k in _REGISTRY if k != "gpt2-l")
 
 
 def get_config(arch_id: str) -> ArchConfig:

@@ -65,12 +65,18 @@ def init_state(model, seed: int = 0, *, mode: str = "lowdiff",
     return state
 
 
+#: top-level subtrees whose leaves are stacked per layer (a leading L
+#: dim): the decoder stack, and the encoder-decoder's two stacks
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def _differentiable(params):
     """(live tree, autograd leaves, regroup). Each stacked per-layer leaf
-    is handed to the model as a list of its (L) layer slices, each its
-    own autograd leaf, and ``regroup`` stacks their gradients back: the
-    gradient of a whole stacked leaf through per-layer indexing would
-    materialize and add one full-size, zero-padded copy per layer."""
+    (under a ``STACKED`` key) is handed to the model as a list of its (L)
+    layer slices, each its own autograd leaf, and ``regroup`` stacks
+    their gradients back: the gradient of a whole stacked leaf through
+    per-layer indexing would materialize and add one full-size,
+    zero-padded copy per layer."""
     leaves, groups = [], []
 
     def live(p, stacked):
@@ -85,7 +91,7 @@ def _differentiable(params):
         leaves.append(base.requires_grad_(True))
         return leaves[-1]
 
-    tree = {k: tree_map(lambda p, s=(k == "layers"): live(p, s), v)
+    tree = {k: tree_map(lambda p, s=(k in STACKED): live(p, s), v)
             for k, v in sorted(params.items())}
 
     def regroup(grads):
@@ -103,8 +109,10 @@ def _differentiable(params):
 
 
 def _micro(batch, accum: int, i: int):
-    """Micro-batch ``i`` of ``accum``: contiguous rows along axis 0, as
-    the reference's ``x.reshape((accum, -1) + x.shape[1:])[i]``."""
+    """Micro-batch ``i`` of ``accum``: contiguous rows along axis 0 of
+    every input (tokens, targets and the frontend inputs
+    ``patch_embeds``, ``loss_mask``, ``src_embeds``), as the reference's
+    ``x.reshape((accum, -1) + x.shape[1:])[i]``."""
     return {k: (x.reshape((accum, -1) + tuple(x.shape[1:]))[i]
                 if x.dim() >= 1 else x) for k, x in batch.items()}
 

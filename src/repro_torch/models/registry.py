@@ -16,7 +16,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.param import (ParamSpec, materialize, param_count)
 
 
@@ -42,7 +42,9 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.cfg = cfg
-        self.specs = lm.param_specs(cfg)
+        # the encoder-decoder (audio) backbone, else the decoder-only LM
+        self._impl = encdec if cfg.arch_type == "audio" else lm
+        self.specs = self._impl.param_specs(cfg)
         _declare(self, self.specs, cfg.pdtype())
 
     def init(self, seed: int = 0, device=None) -> dict:
@@ -53,7 +55,7 @@ class Model(nn.Module):
         return materialize(gen, self.specs, self.cfg.pdtype(), dev)
 
     def loss_fn(self, params, batch):
-        return lm.loss_fn(params, batch, self.cfg)
+        return self._impl.loss_fn(params, batch, self.cfg)
 
     def load_params(self, params: dict) -> None:
         """Bind a param tree into the module (as its Parameters)."""
@@ -66,7 +68,7 @@ class Model(nn.Module):
         bind(self, params)
 
     def forward(self, batch):
-        return lm.loss_fn(_tree_of(self), batch, self.cfg)
+        return self.loss_fn(_tree_of(self), batch)
 
     def n_params(self) -> int:
         return param_count(self.specs)

@@ -2,7 +2,7 @@
 the JAX reference on the CPU: ``_grads`` with ``grad_accum`` 2 (f32
 accumulator) and 4 (bf16 accumulator), one whole lowdiff step of each
 new config (reduced, its own ``grad_accum`` restored), and the config
-registry."""
+registry (the reference's, all eleven architectures)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -187,6 +187,14 @@ def test_new_configs_are_the_reference_dataclasses(arch):
 
 
 def test_registry_lists_the_reference_dense_archs():
+    """The port's registry is the reference's whole registry now (the
+    dense architectures and, since the families slice, the rest), and
+    every entry builds the reference's config."""
+    import dataclasses
     dense = {a for a in JAX_REGISTRY
              if jax_config(a).arch_type == "dense"}
-    assert set(_REGISTRY) == dense
+    assert dense <= set(_REGISTRY)
+    assert _REGISTRY == JAX_REGISTRY
+    for a in _REGISTRY:
+        assert dataclasses.asdict(get_config(a)) == \
+            dataclasses.asdict(jax_config(a))
