@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, full-width gpt2-l
     python3 chip_smoke.py --only families    # the build and phase I
+    python3 chip_smoke.py --only serve       # the build and phase J
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -125,6 +126,17 @@ I. the other model families at full width (``FAMILIES``), each through
    memory, K1/K2/K4 launches). Qwen3-MoE stays off the card (one
    full-width layer is 3.73 B params); ``--only families`` runs the
    build and this phase alone;
+J. serving at full width and full depth, Hymba cut to 16 of 32 layers
+   (``phase_serve``): J1 gpt2-l served by ``serve.run`` from a full that
+   one LowDiff step wrote (``load_params`` bitwise equal to the trained
+   params; decode at the prompt's last position equal to ``logits_fn``;
+   reduced gpt2-l decoded on the card as on the CPU); J2 qwen2-1.5b,
+   DeepSeekMoE, Pixtral, Hymba (past its window), xLSTM and Seamless
+   (prefilled cross K/V), each decoded from a seeded init against its
+   prefill. The decode path launches no kernel (the reference's is plain
+   ``jnp`` too). One ``[serve]`` line per model (params, weight and
+   cache bytes, first and median step ms, tok/s, peak device memory);
+   ``--only serve`` runs the build and this phase alone;
 5. print the ``kernels`` JSON line, the card's name and power limit,
    and the result line.
 
@@ -2533,6 +2545,343 @@ def phase_maint(dev, ckdir: str):
     return total
 
 
+# ---------------------------------------------------------------- phase J
+#: phase J2: (tag, arch, depth cut, batch, prompt_len, gen), each at full
+#: width and, but for Hymba, full depth. Hymba's prompt is 9 Mamba chunks
+#: of 128 (its prefill needs a multiple of the chunk), so its 1,184
+#: positions pass the 1,024 window; its 1,183 host-bound decode steps
+#: took 85.6-116.0 s at 32 layers, so it runs 16 (global layers at the
+#: first, middle and last, as in the reference's 0, 15, 31). DeepSeekMoE
+#: comes last, its init the phase's largest peak
+SERVE_MODELS = (
+    ("[qwen2]", "qwen2-1.5b", {}, 8, 16, 32),
+    ("[vlm]", "pixtral-12b", {}, 4, 16, 32),
+    ("[hybrid]", "hymba-1.5b",
+     {"n_layers": 16, "global_attn_layers": (0, 7, 15)}, 2, 1152, 32),
+    ("[ssm]", "xlstm-350m", {}, 8, 16, 32),
+    ("[audio]", "seamless-m4t-medium", {}, 8, 16, 32),
+    ("[moe]", "deepseek-moe-16b", {}, 4, 16, 32),
+)
+#: decode against prefill (bf16 compute at full width): the largest
+#: |difference| at most this share of the prefill's largest |logit|
+SERVE_TOL = 0.1
+#: reduced gpt2-l (f32) decoded on the card against the CPU: the largest
+#: |difference| at most this times max(1, the CPU's largest |logit|)
+CARD_CPU_TOL = 1e-3
+
+
+def _tree_nbytes(tree) -> int:
+    from repro_torch import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _finite_tokens(tag: str, tokens, logits, vocab: int) -> None:
+    """Every logit finite, every generated token in [0, vocab)."""
+    import numpy as np
+    import torch
+    if not all(bool(torch.isfinite(l).all()) for l in logits):
+        fail(f"{tag} non-finite logits")
+    toks = np.stack(tokens)
+    if not ((toks >= 0) & (toks < vocab)).all():
+        fail(f"{tag} a token outside [0, {vocab})")
+
+
+def _prefill_gate(tag: str, pre, dec) -> tuple:
+    """Decode's logits at the prompt's last position against the
+    prefill's (``logits_fn`` on the prompt): max |difference| within
+    ``SERVE_TOL`` of the prefill's largest |logit|, and the same greedy
+    token wherever the prefill's top-2 margin exceeds twice that
+    difference. Returns (relative error, requests whose margin clears)."""
+    import torch
+    pre, dec = pre.float(), dec.float()
+    err = float((pre - dec).abs().max())
+    rel = err / float(pre.abs().max())
+    top2 = pre.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+    if not rel <= SERVE_TOL:
+        fail(f"{tag} decode vs prefill: max |diff| {err:.4g} is {rel:.4g} "
+             f"of the largest logit (limit {SERVE_TOL})")
+    if not torch.equal(pre.argmax(-1)[clear], dec.argmax(-1)[clear]):
+        fail(f"{tag} decode vs prefill: a greedy token differs where the "
+             f"prefill's margin clears 2 x {err:.4g}")
+    return rel, int(clear.sum())
+
+
+def _greedy_agree(tag: str, got, want, got_tok, want_tok, P: int,
+                  tol: float) -> tuple:
+    """Two greedy runs of one prompt (per-step logits and tokens): each
+    request's logits within ``tol`` x max(1, max |want|) at every step
+    while its tokens agree, and its tokens equal while ``want``'s top-2
+    margin exceeds twice that; after a near-tie a request may diverge.
+    Returns (worst relative error, tokens compared, near-ties)."""
+    import torch
+    got = torch.stack([l.float().cpu() for l in got])       # (steps, B, V)
+    want = torch.stack([l.float().cpu() for l in want])
+    worst, same, ties = 0.0, 0, 0
+    for r in range(want.shape[1]):
+        for s in range(want.shape[0]):
+            scale = max(1.0, float(want[s, r].abs().max()))
+            err = float((got[s, r] - want[s, r]).abs().max()) / scale
+            worst = max(worst, err)
+            if err > tol:
+                fail(f"{tag} request {r} step {s}: logits differ by "
+                     f"{err:.3g} of their scale (limit {tol})")
+            if s < P - 1:
+                continue
+            top2 = want[s, r].topk(2).values
+            if float(top2[0] - top2[1]) <= 2 * tol * scale:
+                ties += 1
+                break
+            g = s - (P - 1)
+            if got_tok[g][r] != want_tok[g][r]:
+                fail(f"{tag} request {r} token {g}: {got_tok[g][r]} vs "
+                     f"{want_tok[g][r]} past a clear margin")
+            same += 1
+    return worst, same, ties
+
+
+def _serve_line(tag, cfg, n_params, weights, cache_b, B, P, gen, step_ms,
+                dt, peak, extra="", full_layers=None) -> None:
+    depth = (f"{cfg.n_layers} + {cfg.n_encoder_layers} layers (full depth)"
+             if cfg.n_encoder_layers else
+             f"{cfg.n_layers} layers (full depth)"
+             if full_layers in (None, cfg.n_layers) else
+             f"cut to {cfg.n_layers} of {full_layers} layers "
+             f"(global {cfg.global_attn_layers})")
+    log(f"[serve] {tag} {cfg.name}: {depth}, d="
+        f"{cfg.d_model}, {cfg.param_dtype} params, {cfg.compute_dtype} "
+        f"compute; {n_params} params, weights {weights} B, cache {cache_b} B;"
+        f" batch {B} / prompt {P} / gen {gen}; first step "
+        f"{step_ms[0]:.2f} ms, median step {statistics.median(step_ms):.2f}"
+        f" ms; {B * gen / dt:.1f} tok/s batch-aggregate ({B * gen} tokens "
+        f"in {dt * 1e3:.1f} ms, {len(step_ms)} steps incl. the prompt); "
+        f"peak device memory {peak} B{extra}")
+
+
+def _decode_timed(tag, model, params, prompt, gen, dev, cache=None):
+    """``serve.generate`` with the kernel counts set to 0 first and the
+    peak memory reset; the decode path must launch no kernel."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    out = serve.generate(model, params, prompt, gen, dev, cache=cache,
+                         keep_logits=True)
+    if any(build.LAUNCHES.values()):
+        fail(f"{tag} decode launched kernels: {dict(build.LAUNCHES)}")
+    return out + (torch.cuda.max_memory_allocated(),)
+
+
+def _serve_gpt2_write(dev, ckdir: str) -> dict:
+    """J1, first half: one LowDiff step on full-width, full-depth gpt2-l
+    (f=2, resumed at step 1, so step 2 writes a full). Its persist runs
+    on LowDiff's threads while J2 decodes; only the live params stay
+    referenced here. Returns what ``_serve_gpt2_read`` needs."""
+    import torch
+    from repro_torch import tree_leaves
+    from repro_torch.checkpoint.config import StoreConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import build_model
+    cfg = get_config("gpt2-l")
+    model = build_model(cfg)
+    root = os.path.join(ckdir, "serve_gpt2")
+    shutil.rmtree(root, ignore_errors=True)
+    strat = _lowdiff_maker(model, dev, 2)(StoreConfig(root=root).build())
+    state, trained, step_ms, _ = _lowdiff_train(cfg, model, dev, strat, 1,
+                                                1, "[J1]")
+    launches = {k: build.LAUNCHES[k] for k in PATH_KERNELS["topk"]}
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"[J1] the LowDiff step did not launch {k}")
+    want = tree_leaves(state["params"])
+    del state, trained
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "model": model, "root": root, "strat": strat,
+            "want": want, "step_ms": step_ms[0], "launches": launches,
+            "t0": time.perf_counter()}
+
+
+def _serve_gpt2_read(j1: dict, dev) -> None:
+    """J1, second half: wait for the full, then ``load_params`` (bitwise
+    equal to the trained params), ``serve.run`` from the directory, the
+    decode-vs-prefill gate, a timed decode, and reduced gpt2-l decoded on
+    the card against the CPU."""
+    import argparse
+    import numpy as np
+    import torch
+    from repro_torch import tree_leaves
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build_model
+    tag, cfg, model, root = "[J1]", j1["cfg"], j1["model"], j1["root"]
+    t0 = time.perf_counter()
+    j1["strat"].close()                     # flushes the full
+    log(f"{tag} LowDiff step 2 (a full) on gpt2-l: step "
+        f"{j1['step_ms']:.1f} ms; J2 ran {t0 - j1['t0']:.1f} s while the "
+        f"full persisted, then close() waited "
+        f"{time.perf_counter() - t0:.2f} s")
+    del j1["strat"]
+    _release_pinned()
+    t0 = time.perf_counter()
+    params = serve.load_params(model, root, device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    got, want = tree_leaves(params), j1.pop("want")
+    if len(got) != len(want) or not all(bits_equal(a, b)
+                                        for a, b in zip(got, want)):
+        fail(f"{tag} load_params differs from the trained params")
+    log(f"{tag} load_params {load_ms:.1f} ms: {len(got)} leaves bitwise "
+        f"equal to the trained params")
+    del want
+    torch.cuda.empty_cache()
+    B, P, gen = 8, 16, 32
+    build.reset_launches()
+    tokens, logits = serve.run(argparse.Namespace(
+        arch="gpt2-l", reduced=False, batch=B, prompt_len=P, gen=gen,
+        ckpt_dir=root, device=str(dev), log_level="info"),
+        return_logits=True)
+    if any(build.LAUNCHES.values()):
+        fail(f"{tag} serve.run launched kernels: {dict(build.LAUNCHES)}")
+    _finite_tokens(tag, tokens, logits, cfg.vocab)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, P))
+    with torch.no_grad():
+        pre = model.logits_fn(params, {"tokens": torch.from_numpy(
+            prompt.astype(np.int32)).to(dev)})
+    rel, clear = _prefill_gate(tag, pre, logits[P - 1])
+    del logits, pre
+    toks2, _, step_ms, dt, peak = _decode_timed(tag, model, params, prompt,
+                                                gen, dev)
+    if not all((a == b).all() for a, b in zip(toks2, tokens)):
+        fail(f"{tag} a second decode of the prompt gave other tokens")
+    cache_b = _tree_nbytes(model.init_cache(B, P + gen, device="meta"))
+    _serve_line(tag, cfg, model.n_params(), _tree_nbytes(params), cache_b,
+                B, P, gen, step_ms, dt, peak,
+                f"; load_params {load_ms:.1f} ms; decode vs prefill "
+                f"{rel:.4g} of scale ({clear}/{B} margins clear)")
+    del params
+    torch.cuda.empty_cache()
+    # the same decode, reduced, on the card and on the CPU
+    rcfg = cfg.reduced()
+    rm = build_model(rcfg)
+    cpu = rm.init(0, device="cpu")
+    prompt = np.random.default_rng(1).integers(0, rcfg.vocab, (4, 8))
+    ct, cl, _, _ = serve.generate(rm, cpu, prompt, 8, torch.device("cpu"),
+                                  keep_logits=True)
+    gt, gl, _, _ = serve.generate(rm, _to(cpu, dev), prompt, 8, dev,
+                                  keep_logits=True)
+    worst, same, ties = _greedy_agree(tag, gl, cl, gt, ct, 8, CARD_CPU_TOL)
+    log(f"[reference] reduced gpt2-l decode card vs cpu: logits within "
+        f"{worst:.3g} of scale (limit {CARD_CPU_TOL}), {same} greedy tokens "
+        f"equal{f', {ties} near-ties' if ties else ''}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _serve_family(tag, arch, cut, B, P, gen, dev) -> None:
+    """J2: one model at full width (depth ``cut``) from a seeded init: decode
+    (the prompt fed token by token, then ``gen`` greedy tokens) timed,
+    finite, and at the prompt's last position equal to the prefill."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import lm, moe
+    from repro_torch.models.registry import build_model
+    full = get_config(arch)
+    cfg = full.replace(**cut)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, P))
+    batch = {"tokens": torch.from_numpy(prompt.astype(np.int32)).to(dev)}
+    cache, extra = None, ""
+    if cfg.arch_type == "audio":
+        src = make_batch(cfg, P + gen, B, device=dev)["src_embeds"]
+        batch["src_embeds"] = src
+        with torch.no_grad():
+            cache = model.prefill_cache(params, {"src_embeds": src}, B,
+                                        P + gen)
+        extra = f"; cross K/V prefilled from {src.shape[1]} frames"
+    if cfg.arch_type == "vlm":      # text decode: a prefill with no patches
+        batch["patch_embeds"] = torch.zeros(
+            (B, 0, cfg.frontend_dim), dtype=cfg.cdtype(), device=dev)
+    tokens, logits, step_ms, dt, peak = _decode_timed(
+        tag, model, params, prompt, gen, dev, cache=cache)
+    _finite_tokens(tag, tokens, logits, cfg.vocab)
+    with torch.no_grad():
+        if cfg.arch_type == "moe":
+            # decode routes B tokens (capacity 8, drop-free); a prefill of
+            # capacity >= B * P is its counterpart, the config's own
+            # capacity is shown beside it
+            free = cfg.replace(moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+            pre = lm.logits_fn(params, batch, free)
+            own = model.logits_fn(params, batch)
+            extra = (f"; the config's own capacity {moe.capacity(B * P, cfg)}"
+                     f" for {B * P} tokens moves the prefill by "
+                     f"{float((own - pre).abs().max()):.4g}")
+            del own
+        else:
+            pre = model.logits_fn(params, batch)
+    rel, clear = _prefill_gate(tag, pre, logits[P - 1])
+    cache_b = _tree_nbytes(model.init_cache(B, P + gen, device="meta"))
+    _serve_line(tag, cfg, model.n_params(), _tree_nbytes(params), cache_b,
+                B, P, gen, step_ms, dt, peak,
+                f"; init {init_s:.2f} s, init peak {init_peak} B ({held} B "
+                f"held before it); decode vs "
+                f"prefill {rel:.4g} of scale ({clear}/{B} margins clear)"
+                + extra, full_layers=full.n_layers)
+    del params, cache, logits, pre, batch
+    torch.cuda.empty_cache()
+
+
+def phase_serve(dev, ckdir: str):
+    """Phase J: serving (``repro_torch.launch.serve``) at full width and
+    full depth (serving holds only the weights), but for Hymba, cut to
+    16 of its 32 layers for the script's time limit (``SERVE_MODELS``).
+    J1: gpt2-l (36 L, 1,072,469,760 params, f32): one LowDiff step
+    (f=2, resumed at step 1) writes a full; ``load_params`` must return
+    the trained params bitwise; ``serve.run`` (batch 8, prompt 16, gen
+    32, ``reduced=False`` as the CLI cannot pass it) decodes them; the
+    logits at the prompt's last position equal ``logits_fn`` on the
+    prompt within ``SERVE_TOL``; reduced gpt2-l decodes on the card as on
+    the CPU (``CARD_CPU_TOL``, ``_greedy_agree``). J2 (``SERVE_MODELS``),
+    each from a seeded init and freed before the next: qwen2-1.5b (the
+    reference serve's default arch), Pixtral (40 L, text decode against
+    a prefill with no patches), Hymba (16 of 32 L, global layers 0, 7,
+    15, 1,184 positions past its 1,024 window), xLSTM (24 L), Seamless (12 +
+    12 L, through ``prefill_cache`` then ``decode_step``) and DeepSeekMoE
+    (28 L, 16.88 B params; the f32 draws of its 5.17 B-element expert
+    leaves are the phase's memory peak, printed as the init peak; decode is
+    compared with a prefill of capacity >= its tokens, as decode never
+    drops and the config's prefill can). J1's full is persisted by
+    LowDiff's threads while J2 runs, and J1 is served after J2. Every
+    model: finite logits, tokens in the vocab, decode against prefill,
+    no kernel launched. Off the card: Qwen3-MoE (235 B params, ~470 GB in
+    bf16) and llama3-405b (~810 GB) exceed one card's 80 GB; granite and
+    stablelm take the dense path of J1 and qwen2. One ``[serve]`` line
+    per model. Returns J1's training launches (K1, K2, K4)."""
+    t0 = time.perf_counter()
+    j1 = _serve_gpt2_write(dev, ckdir)
+    log(f"[time] J1 step: {time.perf_counter() - t0:.1f} s")
+    for tag, arch, cut, B, P, gen in SERVE_MODELS:
+        t0 = time.perf_counter()
+        _serve_family(tag, arch, cut, B, P, gen, dev)
+        log(f"[time] J2 {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _serve_gpt2_read(j1, dev)
+    log(f"[time] J1 serve: {time.perf_counter() - t0:.1f} s")
+    return j1["launches"]
+
+
 # ---------------------------------------------------------------- profile
 def phase_profile(cfg, dev, steps: int = 2):
     """``--profile``: torch.profiler over warm lowdiff and dense steps
@@ -2615,9 +2964,10 @@ KERNELS = [
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("all", "kernels", "families"),
+    ap.add_argument("--only", choices=("all", "kernels", "families",
+                                       "serve"),
                     default="all", help="kernels: stop after phase A; "
-                    "families: the build and phase I alone")
+                    "families / serve: the build and phase I / J alone")
     ap.add_argument("--profile", action="store_true",
                     help="also profile warm lowdiff and dense steps")
     ap.add_argument("--ckpt-dir", default=os.path.join(HERE, "build",
@@ -2646,10 +2996,11 @@ def main() -> int:
     cfg = get_config("gpt2-l")
 
     phase_build()
-    if args.only == "families":
-        got = phase_families(dev, args.ckpt_dir)
-        log(f"[done] build + phase I passed in "
-            f"{time.perf_counter() - t_all:.1f} s; launches {got}")
+    if args.only in ("families", "serve"):
+        phase = phase_families if args.only == "families" else phase_serve
+        got = phase(dev, args.ckpt_dir)
+        log(f"[done] build + phase {'I' if args.only == 'families' else 'J'}"
+            f" passed in {time.perf_counter() - t_all:.1f} s; launches {got}")
         print(smi, flush=True)
         return 0
     res = phase_parity(cfg, dev)
@@ -2712,6 +3063,10 @@ def main() -> int:
         for k in PATH_KERNELS["topk"]:
             launches[k] += got[k]
         log(f"[time] + phase I: {time.perf_counter() - t_all:.1f} s")
+        got = phase_serve(dev, args.ckpt_dir)
+        for k in PATH_KERNELS["topk"]:
+            launches[k] += got[k]
+        log(f"[time] + phase J: {time.perf_counter() - t_all:.1f} s")
     if args.profile:
         phase_profile(cfg, dev)
     kernels = []

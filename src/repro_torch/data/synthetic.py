@@ -1,4 +1,4 @@
-"""Deterministic synthetic training batches.
+"""Deterministic synthetic batches (training/prefill and decode).
 
 Token streams from numpy's counter-seeded PRNG, exactly as the
 reference draws them (``repro.data.synthetic``): a batch depends only on
@@ -6,8 +6,8 @@ reference draws them (``repro.data.synthetic``): a batch depends only on
 recovered run replays the same batches. The stub frontend inputs come
 from the same generator after the tokens, in the reference's order: the
 vlm's ``patch_embeds`` and ``loss_mask``, the audio backbone's
-``src_embeds``. Train/prefill batches only; decode batches are not
-ported yet.
+``src_embeds``. A decode batch is one int32 token per request and the
+position ``min(seq_len - 1, 7)``, from the same generator.
 """
 from __future__ import annotations
 
@@ -38,11 +38,15 @@ def make_batch(cfg: ArchConfig, seq_len: int, batch: int, *, step: int = 0,
     """Concrete batch for training: int32 ``tokens``/``targets`` (B, S),
     plus ``patch_embeds`` (B, P, Fd) and an f32 ``loss_mask`` (B, S)
     that masks the P patch positions (vlm), or ``src_embeds``
-    (B, S_src, d) (audio), in the compute dtype."""
-    if kind != "train":
-        raise NotImplementedError(
-            f"only train batches are ported (kind={kind!r})")
+    (B, S_src, d) (audio), in the compute dtype. ``kind="decode"``:
+    int32 ``tokens`` (B, 1) and a 0-d int32 ``pos``; any other kind is
+    a train/prefill batch, as in the reference."""
     rng = _tok_rng(seed, step)
+    if kind == "decode":
+        toks = rng.integers(0, cfg.vocab, (batch, 1)).astype(np.int32)
+        return {"tokens": torch.from_numpy(toks).to(device),
+                "pos": torch.tensor(min(seq_len - 1, 7), dtype=torch.int32,
+                                    device=device)}
     toks = torch.from_numpy(
         rng.integers(0, cfg.vocab, (batch, seq_len + 1)).astype(np.int32))
     out = {"tokens": toks[:, :-1].contiguous(),

@@ -1,12 +1,12 @@
 """Block-level mixers shared by the model zoo (the reference's
-``repro.models.blocks``, train path): GQA attention (self- and, with
-``kv=``, cross-attention), the SwiGLU FFN and Hymba's Mamba-2 style
-selective-SSM mixer. The decode halves (caches) are not ported yet.
-``distributed.sharding.shard`` constraints of the reference are the
-identity on one device."""
+``repro.models.blocks``): GQA attention (self- and, with ``kv=``,
+cross-attention), the SwiGLU FFN and Hymba's Mamba-2 style
+selective-SSM mixer, each with its full-sequence (train/prefill) and
+single-token decode form. ``distributed.sharding.shard`` constraints of
+the reference are the identity on one device."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -74,6 +74,36 @@ def attention_apply(p, x, cfg: ArchConfig, *, positions, causal=True,
     out = ops.attention(q, k, v, causal=causal, window=window)
     out = out.reshape(B, S, -1)
     return torch.matmul(out, p["wo"].to(x.dtype))
+
+
+def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos, *,
+                     window: int = 0, ring: bool = False, cross_kv=None):
+    """x: (B, 1, d); cache_k/v: (B, Sc, KV, hd), written in place at the
+    token's slot; pos: 0-d tensor (or int). Returns (out, k', v').
+
+    The ring (a long context bounded to ``Sc`` slots) writes slot
+    ``pos % Sc`` and, as the reference does, attends to all ``Sc`` slots
+    with no window from the first token on, slots not yet written
+    included. ``cross_kv`` = (k, v) of the encoder memory: q is rotated
+    at ``pos``, every frame is attended to and the self cache is
+    returned as it came."""
+    B = x.shape[0]
+    Sc = cache_k.shape[1]
+    positions = torch.as_tensor(pos, device=x.device).reshape(1)
+    if cross_kv is None:
+        q, k, v = _qkv(p, x, cfg, positions)
+        slot = pos % Sc if ring else pos
+        ops.cache_update(cache_k, k[:, 0], slot)
+        ops.cache_update(cache_v, v[:, 0], slot)
+        out = ops.decode_attention(q[:, 0], cache_k, cache_v,
+                                   Sc - 1 if ring else pos,
+                                   window=0 if ring else window)
+    else:
+        q = _proj(p, x, cfg, "q", cfg.n_heads, positions)
+        ck, cv = cross_kv
+        out = ops.decode_attention(q[:, 0], ck, cv, ck.shape[1] - 1)
+    out = torch.matmul(out.reshape(B, -1), p["wo"].to(x.dtype))
+    return out[:, None], cache_k, cache_v
 
 
 # --------------------------------------------------------------------------
@@ -159,3 +189,42 @@ def mamba_apply(p, x, cfg: ArchConfig):
     y = y + xm.reshape(B, S, Hm, hp) * p["Dskip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(B, S, di) * F.silu(z.float()).to(x.dtype)
     return torch.matmul(y, p["wout"].to(x.dtype))
+
+
+class MambaCache(NamedTuple):
+    state: la.LinState
+    conv: torch.Tensor      # (B, W-1, di) trailing inputs, f32
+
+
+def mamba_cache_shape(cfg: ArchConfig, B, device=None) -> MambaCache:
+    """A zero cache of one layer's mixer."""
+    di, N, Hm, hp = _mamba_dims(cfg)
+    return MambaCache(la.init_state(B, Hm, N, hp, device=device),
+                      torch.zeros((B, cfg.ssm.conv_width - 1, di),
+                                  dtype=torch.float32, device=device))
+
+
+def mamba_decode(p, x, cfg: ArchConfig, cache: MambaCache):
+    """x: (B,1,d) -> (out (B,1,d), new cache): one step of the causal
+    conv over the cached inputs and of the SSD recurrence
+    (``linear_attn.decode_step``)."""
+    B = x.shape[0]
+    xm, z, di, N, Hm, hp = _mamba_qkv(p, x, cfg)
+    hist = torch.cat([cache.conv, xm.float()], dim=1)   # (B,W,di)
+    conv_out = (hist * p["conv"].float()).sum(dim=1)
+    xm1 = F.silu(conv_out).to(x.dtype)                  # (B,di)
+    Bm = torch.matmul(x, p["wB"].to(x.dtype))[:, 0]
+    Cm = torch.matmul(x, p["wC"].to(x.dtype))[:, 0]
+    dt = F.softplus(torch.matmul(x, p["wdt"].to(x.dtype)).float()[:, 0]
+                    + p["dt_bias"].float())             # (B,Hm)
+    A = -torch.exp(p["A_log"].float())
+    ld = dt * A
+    q = Cm[:, None, :].expand(B, Hm, N)
+    k = Bm[:, None, :].expand(B, Hm, N)
+    v = xm1.reshape(B, Hm, hp) * dt[..., None].to(x.dtype)
+    st, y = la.decode_step(cache.state, q, k, v, ld)
+    y = (y.to(x.dtype)
+         + xm1.reshape(B, Hm, hp) * p["Dskip"].to(x.dtype)[None, :, None])
+    y = y.reshape(B, di) * F.silu(z.float()).to(x.dtype)[:, 0]
+    out = torch.matmul(y, p["wout"].to(x.dtype))
+    return out[:, None], MambaCache(st, hist[:, 1:])

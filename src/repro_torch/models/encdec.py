@@ -1,5 +1,5 @@
-"""Encoder-decoder backbone (SeamlessM4T-medium assignment), the train
-path of ``repro.models.encdec``.
+"""Encoder-decoder backbone (SeamlessM4T-medium assignment), the port of
+``repro.models.encdec``: train/prefill and cached decode.
 
 The audio frontend (mel-spectrogram + conformer feature extractor) is a
 stub, as in the reference: the batch carries precomputed frame
@@ -8,15 +8,19 @@ embeddings ``src_embeds`` (B, S_src, d_model). The transformer encoder
 causal decoder cross-attends to its memory. Both stacks are stored
 stacked (``enc_layers``, ``dec_layers``) and run as Python loops over
 their layers, each recomputed on backward when ``cfg.remat`` is set.
-The decode cache is not ported yet.
+Decode keeps the decoder's self-attention K/V and the encoder memory's
+cross K/V per layer (``EncDecCache``); ``prefill_cache`` fills the
+latter.
 """
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, ops
-from repro_torch.models.lm import _layer, _run
+from repro_torch.models.lm import _layer, _run, cache_len, embed_decode
 from repro_torch.models.param import ParamSpec
 
 
@@ -111,3 +115,75 @@ def loss_fn(params, batch, cfg: ArchConfig):
     xent = tot / torch.clamp(cnt, min=1.0)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return xent, {"xent": xent, "aux": aux, "tokens": cnt}
+
+
+def logits_fn(params, batch, cfg: ArchConfig):
+    """Prefill: final-position logits (B, V) in f32."""
+    memory = encode(params, batch["src_embeds"], cfg)
+    h = params["embed"].to(cfg.cdtype())[batch["tokens"].long()]
+    h = h * ops.sqrt_scale(cfg.d_model, cfg.cdtype())
+    h = decode_stack(params, h, memory, cfg)
+    return torch.matmul(h[:, -1].float(),
+                        params["lm_head"].to(h.dtype).float())
+
+
+class EncDecCache(NamedTuple):
+    k: Any           # (L, B, Sc, KV, hd) decoder self-attention
+    v: Any
+    cross_k: Any     # (L, B, S_src, KV, hd) precomputed encoder K/V
+    cross_v: Any
+
+
+def init_cache(cfg: ArchConfig, B: int, seq_len: int, device=None):
+    """Zero caches; the cross K/V hold ``src_len`` frames of a context
+    of ``seq_len`` (at most 32,768) tokens."""
+    Lc = cache_len(cfg, seq_len)
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd()
+    Ss = src_len(cfg, min(seq_len, 32768))
+
+    def mk(shape):
+        return torch.zeros(shape, dtype=cfg.cdtype(), device=device)
+
+    return EncDecCache(mk((L, B, Lc, KV, hd)), mk((L, B, Lc, KV, hd)),
+                       mk((L, B, Ss, KV, hd)), mk((L, B, Ss, KV, hd)))
+
+
+def prefill_cache(params, batch, cfg: ArchConfig, B, seq_len):
+    """Build the decode cache: encode the source, precompute every
+    decoder layer's cross K/V."""
+    memory = encode(params, batch["src_embeds"], cfg)
+    kv = [_cross_kv(_layer(params["dec_layers"], i)["cross_attn"], memory,
+                    cfg) for i in range(cfg.n_layers)]
+    base = init_cache(cfg, B, seq_len, device=memory.device)
+    return base._replace(cross_k=torch.stack([k for k, _ in kv]),
+                         cross_v=torch.stack([v for _, v in kv]))
+
+
+def dec_decode_block(lp, h, cfg: ArchConfig, ck, cv, xk, xv, pos, ring):
+    x = ops.rms_norm(h, lp["self_norm"], cfg.norm_eps)
+    a, ck2, cv2 = blocks.attention_decode(lp["self_attn"], x, cfg,
+                                          ck, cv, pos, ring=ring)
+    h = h + a
+    x = ops.rms_norm(h, lp["cross_norm"], cfg.norm_eps)
+    a, _, _ = blocks.attention_decode(lp["cross_attn"], x, cfg,
+                                      ck, cv, pos, cross_kv=(xk, xv))
+    h = h + a
+    x = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
+    return h + blocks.ffn_apply(lp["ffn"], x), ck2, cv2
+
+
+def decode_step(params, cache: EncDecCache, batch, cfg: ArchConfig,
+                seq_len: int):
+    """One-token decode -> (logits (B, V) f32, cache); the self K/V are
+    written in place."""
+    h = embed_decode(params, batch, cfg)
+    pos = torch.as_tensor(batch["pos"], device=h.device)
+    ring = cache_len(cfg, seq_len) < seq_len
+    for i in range(cfg.n_layers):
+        h, _, _ = dec_decode_block(_layer(params["dec_layers"], i), h, cfg,
+                                   cache.k[i], cache.v[i], cache.cross_k[i],
+                                   cache.cross_v[i], pos, ring)
+    h = ops.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = torch.matmul(h[:, 0].float(),
+                          params["lm_head"].to(h.dtype).float())
+    return logits, cache

@@ -1,4 +1,5 @@
-"""Shared numeric building blocks: norms, RoPE, attention, chunked xent.
+"""Shared numeric building blocks: norms, RoPE, attention (prefill and
+single-token decode against a KV cache), the cache write, chunked xent.
 
 Plain torch ops that mirror ``repro.models.ops`` op for op. Softmax
 statistics are kept in f32 regardless of the compute dtype, and every
@@ -54,8 +55,7 @@ def attention(q, k, v, *, causal=True, window=0):
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    scale = 1.0 / (D ** 0.5)
-    qr = (q * scale).reshape(B, Sq, KV, G, D)
+    qr = (q * as_dtype(1.0 / D ** 0.5, q.dtype)).reshape(B, Sq, KV, G, D)
     s = torch.einsum("bqkgd,bckd->bqkgc", qr.float(), k.float())
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
@@ -72,6 +72,43 @@ def attention(q, k, v, *, causal=True, window=0):
     acc = torch.einsum("bqkgc,bckd->bqkgd", p.to(v.dtype).float(), v.float())
     out = (acc / torch.clamp(l, min=1e-20)[..., None]).to(q.dtype)
     return out.reshape(B, Sq, H, D)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
+    """Single-token attention against a KV cache.
+
+    q: (B, H, D); k_cache/v_cache: (B, S, KV, D); pos: the index of the
+    current token (an int or a 0-d tensor; entries > pos are invalid),
+    and with ``window`` > 0 only entries > pos - window are valid.
+    Scores in f32 (f32 products of the inputs), an f32 softmax, and the
+    probabilities cast to v's dtype for the value product, as the
+    reference's two ``preferred_element_type=f32`` einsums.
+    """
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qr = (q * as_dtype(1.0 / D ** 0.5, q.dtype)).reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qr.float(), k_cache.float())
+    idx = torch.arange(S, device=q.device)
+    ok = idx <= pos
+    if window > 0:
+        ok &= idx > pos - window
+    s = torch.where(ok[None, None, None, :], s,
+                    torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def cache_update(cache, new, pos):
+    """Write ``new`` (B, KV, D) at sequence slot ``pos`` of ``cache``
+    (B, S, KV, D), in place; returns ``cache``. The same bytes as the
+    reference's masked write ``where(iota == pos, new, cache)``, without
+    a second copy of the cache. ``pos`` may be a 0-d device tensor: no
+    host sync."""
+    slot = torch.as_tensor(pos, device=cache.device).reshape(1).long()
+    return cache.index_copy_(1, slot, new[:, None].to(cache.dtype))
 
 
 def swiglu(x, wg, wu, wd):
@@ -117,8 +154,14 @@ def chunked_softmax_xent(h, w_lm, targets, *, chunk=512, mask=None,
     return tot, cnt
 
 
+def as_dtype(v: float, dtype) -> float:
+    """A python scalar rounded to ``dtype`` first, as JAX rounds a weakly
+    typed scalar to the array's dtype before ``x * v`` or ``x / v``
+    (torch would apply it in f32 to a bf16 tensor)."""
+    return float(torch.tensor(v, dtype=torch.float64).to(dtype))
+
+
 def sqrt_scale(d_model: int, dtype) -> float:
     """``jnp.asarray(np.sqrt(d), dtype)`` as a python float: the scale
     rounded to the compute dtype first, as the reference rounds it."""
-    return float(torch.tensor(math.sqrt(d_model), dtype=torch.float64)
-                 .to(dtype))
+    return as_dtype(math.sqrt(d_model), dtype)

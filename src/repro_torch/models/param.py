@@ -6,7 +6,8 @@ reference (``repro.models.param``). ``materialize`` draws every leaf
 from one explicit ``torch.Generator`` in JAX leaf order (sorted dict
 keys) with the same fan-in rule. ``jax.random`` bits cannot be
 reproduced in torch, so :func:`from_jax_params` carries a reference
-initialization (a tree of numpy arrays) into the port instead.
+initialization (a tree of numpy arrays) into the port instead, and
+:func:`from_jax_cache` a reference decode cache.
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ def _init_leaf(gen: torch.Generator, spec: ParamSpec, dtype,
         return torch.ones(spec.shape, dtype=dt, device=device)
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (x * init_std(spec)).to(dt)
+    return x.mul_(init_std(spec)).to(dt)    # in place: one f32 temporary
 
 
 def materialize(gen: torch.Generator, specs, dtype, device) -> dict:
@@ -103,3 +104,22 @@ def from_jax_params(tree, specs=None, dtype=None, device="cpu") -> dict:
         if got != want:
             raise ValueError(f"param tree mismatch: {got} != {want}")
     return tree_map(lambda a: to_tensor(a, device=device, dtype=dtype), tree)
+
+
+def from_jax_cache(cache, device="cpu"):
+    """The state carry: a reference decode cache (its NamedTuples with
+    numpy leaves, e.g. ``jax.tree.map(np.asarray, cache)``; ``()`` for
+    unused fields) -> the port's cache of the same types on ``device``,
+    with writable leaves (decode updates them in place)."""
+    from repro_torch.models import blocks, encdec, linear_attn, lm, xlstm
+    types = {t.__name__: t for t in (
+        lm.DecodeCache, encdec.EncDecCache, blocks.MambaCache,
+        linear_attn.LinState, xlstm.MLSTMCache, xlstm.SLSTMState)}
+
+    def carry(x):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return types[type(x).__name__](*(carry(v) for v in x))
+        if isinstance(x, tuple) and not x:
+            return ()
+        return to_tensor(x, device=device)       # a copy: never aliased
+    return carry(cache)

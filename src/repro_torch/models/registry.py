@@ -7,7 +7,9 @@ the module describes the tree, and the training state owns the tensors.
 ``init`` materializes a param tree on a device from a seeded
 ``torch.Generator``; ``loss_fn(params, batch)`` is the functional form
 the step differentiates, ``forward(batch)`` the same function over
-parameters bound into the module with ``load_params``.
+parameters bound into the module with ``load_params``. Serving takes
+the reference's ``logits_fn``, ``init_cache``, ``decode_step`` and, for
+the encoder-decoder only, ``prefill_cache`` (None otherwise).
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ class Model(nn.Module):
         self._impl = encdec if cfg.arch_type == "audio" else lm
         self.specs = self._impl.param_specs(cfg)
         _declare(self, self.specs, cfg.pdtype())
+        self.prefill_cache = (self._prefill_cache
+                              if cfg.arch_type == "audio" else None)
 
     def init(self, seed: int = 0, device=None) -> dict:
         """Initialize a param tree on ``device`` (CUDA unless the CPU is
@@ -56,6 +60,25 @@ class Model(nn.Module):
 
     def loss_fn(self, params, batch):
         return self._impl.loss_fn(params, batch, self.cfg)
+
+    def logits_fn(self, params, batch):
+        """(B, V) f32 logits of the batch's last position."""
+        return self._impl.logits_fn(params, batch, self.cfg)
+
+    def init_cache(self, B: int, seq_len: int, device=None):
+        """Zero decode caches on ``device`` (CUDA unless the CPU is
+        asked for)."""
+        return self._impl.init_cache(self.cfg, B, seq_len,
+                                     device=resolve_device(device))
+
+    def decode_step(self, params, cache, batch, seq_len: int):
+        """(logits (B, V) f32, cache) of one token; the cache is updated
+        in place."""
+        return self._impl.decode_step(params, cache, batch, self.cfg,
+                                      seq_len)
+
+    def _prefill_cache(self, params, batch, B: int, seq_len: int):
+        return encdec.prefill_cache(params, batch, self.cfg, B, seq_len)
 
     def load_params(self, params: dict) -> None:
         """Bind a param tree into the module (as its Parameters)."""

@@ -10,7 +10,8 @@ recurrent weights — inherently sequential: the reference's ``lax.scan``
 over time is a Python loop over the sequence here.
 
 Blocks alternate mLSTM/sLSTM (``cfg.slstm_every == 2``): the layer stack
-is stored and run as *pairs*. The decode caches are not ported yet.
+is stored and run as *pairs*. Decode carries the mLSTM's (S, n, m) state
+and conv inputs (``MLSTMCache``) and the sLSTM's (h, c, n, m).
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def _mlstm_inner(p, xm, cfg: ArchConfig):
     d, _, H, hp = _dims(cfg)
     q = torch.matmul(xm, p["wq"].to(xm.dtype)).reshape(B, S, H, hp)
     k = torch.matmul(xm, p["wk"].to(xm.dtype)).reshape(B, S, H, hp)
-    k = k / (hp ** 0.5)
+    k = k / ops.as_dtype(hp ** 0.5, k.dtype)
     v = torch.matmul(xm, p["wv"].to(xm.dtype)).reshape(B, S, H, hp)
     gates = (torch.matmul(xm, p["w_if"].to(xm.dtype)).float()
              + p["b_if"].float())
@@ -84,6 +85,40 @@ def mlstm_apply(p, h, cfg: ArchConfig):
     y = ops.rms_norm(y, p["gnorm"], cfg.norm_eps)
     y = y * F.silu(z.float()).to(x.dtype)
     return h + torch.matmul(y, p["w_down"].to(x.dtype))
+
+
+class MLSTMCache(NamedTuple):
+    state: la.LinState
+    conv: torch.Tensor      # (B, W-1, di) trailing inputs, f32
+
+
+def mlstm_cache(cfg: ArchConfig, B, device=None) -> MLSTMCache:
+    d, di, H, hp = _dims(cfg)
+    return MLSTMCache(la.init_state(B, H, hp, hp, device=device),
+                      torch.zeros((B, cfg.ssm.conv_width - 1, di),
+                                  dtype=torch.float32, device=device))
+
+
+def mlstm_decode(p, h, cfg: ArchConfig, cache: MLSTMCache):
+    """h: (B,1,d) -> (h', new cache): one step of the conv and of the
+    stabilized, normalized recurrence."""
+    B = h.shape[0]
+    _, di, H, hp = _dims(cfg)
+    x = ops.rms_norm(h, p["norm"], cfg.norm_eps)
+    up = torch.matmul(x, p["w_up"].to(x.dtype))
+    xm, z = up[..., :di], up[..., di:]
+    hist = torch.cat([cache.conv, xm.float()], dim=1)
+    xm1 = F.silu((hist * p["conv"].float()).sum(dim=1))
+    xm1 = xm1.to(x.dtype)[:, None]                        # (B,1,di)
+    q, k, v, ld, li = _mlstm_inner(p, xm1, cfg)
+    st, y = la.decode_step(cache.state, q[:, 0], k[:, 0], v[:, 0],
+                           ld[:, 0], li[:, 0], normalize=True,
+                           stabilize=True)
+    y = y.reshape(B, 1, di).to(x.dtype)
+    y = ops.rms_norm(y, p["gnorm"], cfg.norm_eps)
+    y = y * F.silu(z.float()).to(x.dtype)
+    out = h + torch.matmul(y, p["w_down"].to(x.dtype))
+    return out, MLSTMCache(st, hist[:, 1:])
 
 
 # --------------------------- sLSTM ----------------------------------------
@@ -162,3 +197,8 @@ def slstm_apply(p, hres, cfg: ArchConfig, state: SLSTMState = None):
     hmid = F.gelu(a.float(), approximate="tanh").to(x2.dtype) * b
     out = h1 + torch.matmul(hmid, p["w_down"].to(x2.dtype))
     return (out, st) if state is not None else out
+
+
+def slstm_decode(p, hres, cfg: ArchConfig, state: SLSTMState):
+    """One step of ``slstm_apply`` from ``state``: (out, state')."""
+    return slstm_apply(p, hres, cfg, state=state)

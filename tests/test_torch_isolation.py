@@ -27,6 +27,7 @@ def _modules():
 def test_port_imports_neither_jax_nor_reference():
     mods = _modules()
     assert "repro_torch.launch.train" in mods
+    assert "repro_torch.launch.serve" in mods
     assert "repro_torch.kernels.build" in mods
     code = ("import importlib, sys, json\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
