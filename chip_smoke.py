@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, full-width gpt2-l
     python3 chip_smoke.py --only families    # the build and phase I
     python3 chip_smoke.py --only serve       # the build and phase J
+    python3 chip_smoke.py --only dist        # the build and phase K
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -88,8 +89,8 @@ G. the storage tiers: LowDiff top-k + EF (K1, K2, K4) through stores
    C's chain; one ``[tier]`` line per stack (full put ms, write-back and
    flush ms, bytes, evictions, chunks, retries, recovery ms, peak RSS);
 H. maintenance, journal segments and the peer tier: H1 LowDiff (f=2,
-   b=2, steps 2..5) on gpt2-l at full width cut to 12 of 36 layers (full
-   depth until phase I came) through ``EngineConfig(maintenance=
+   b=2, steps 2..5) on gpt2-l at full width cut to 8 of 36 layers (full
+   depth until phase I came, 12 until phase K) through ``EngineConfig(maintenance=
    True).build_store()`` over ``StoreConfig(tiers=[peer(replicas=2,
    simulate_peers=True), local], retention_fulls=1, host_id="h0")``:
    after ``flush()`` the service's GC has removed full 2's chain from
@@ -118,10 +119,11 @@ I. the other model families at full width (``FAMILIES``), each through
    at 128 tokens a micro-batch, so the router drops; its parallel replay
    too, within tolerance), Hymba cut to 8 of 32 layers with global
    attention at layers 0, 3 and 7 (batch 2 x seq 2048: the 1024-token
-   window binds, the Mamba scan runs 16 chunks), xLSTM at full depth
-   (batch 4 x seq 256: 2 mLSTM chunks), Pixtral cut to 1 of 40 layers
-   (bf16, grad_accum 2, 32 patches) and Seamless at full depth (16
-   source frames). One ``[family]`` line each (config and cut, params,
+   window binds, the Mamba scan runs 16 chunks), xLSTM cut to 12 of 24
+   blocks (batch 4 x seq 256: 2 mLSTM chunks), Pixtral cut to 1 of 40
+   layers (bf16, grad_accum 2, 32 patches) and Seamless cut to 6 + 6 of
+   12 + 12 layers (16 source frames); xLSTM and Seamless ran at full
+   depth until phase K came. One ``[family]`` line each (config and cut, params,
    state bytes, median step ms, payload bytes, recovery ms, peak device
    memory, K1/K2/K4 launches). Qwen3-MoE stays off the card (one
    full-width layer is 3.73 B params); ``--only families`` runs the
@@ -136,7 +138,25 @@ J. serving at full width and full depth, Hymba cut to 16 of 32 layers
    prefill. The decode path launches no kernel (the reference's is plain
    ``jnp`` too). One ``[serve]`` line per model (params, weight and
    cache bytes, first and median step ms, tok/s, peak device memory);
-   ``--only serve`` runs the build and this phase alone;
+   ``--only serve`` runs the build and this phase alone
+   (``--only hymba-f32`` decodes J2's Hymba alone with f32 compute);
+K. the distributed layer (``phase_dist``) on a ``torch.distributed``
+   NCCL group of one rank, initialised through a ``FileStore`` (the
+   phase fails if NCCL does not initialise; multi-rank worlds run on
+   the CPU under gloo in the tests, since NCCL refuses two ranks on one
+   device), full-width, full-depth gpt2-l, batch 4 x seq 64: K1 three
+   ``make_sharded_train_step(mode="lowdiff_sharded")`` steps on the live
+   (1, 1) mesh, step by step against the unsharded ``lowdiff_plus`` step
+   followed by ``compress_tree``, from the same init and batches: state,
+   loss and payload bitwise equal; K2 the shard-local compression of
+   K1's last gradient under the abstract (data 2, model 4) layout, each
+   distinct local block through K1 in this process, rank by rank, each
+   bitwise equal to K1's plain version on the same block, the rows in
+   the reference's ``out_spec`` order; K3 the sharded prefill (B 8,
+   prompt 16) and 8 sharded decode steps against ``logits_fn`` and
+   ``decode_step``, bitwise, logits and cache. ``[dist]`` lines: step
+   ms, launches, K2's blocks and ms; ``--only dist`` runs the build and
+   this phase alone;
 5. print the ``kernels`` JSON line, the card's name and power limit,
    and the result line.
 
@@ -1959,12 +1979,16 @@ FAMILIES = (
     # past the cut stack. seq 2048 > the 1024 window, 16 Mamba chunks
     ("[hybrid]", "hymba-1.5b",
      {"n_layers": 8, "global_attn_layers": (0, 3, 7)}, 2, 2048, False),
-    # full depth (24 blocks); seq 256 carries the mLSTM across 2 chunks
-    ("[ssm]", "xlstm-350m", {}, 4, 256, False),
+    # 12 of 24 blocks (full depth until phase K came: its eager sLSTM
+    # loop, ~9 s a step, held the script near its time limit); seq 256
+    # carries the mLSTM across 2 chunks
+    ("[ssm]", "xlstm-350m", {"n_layers": 12}, 4, 256, False),
     # 1 of 40 layers: the projector and the masked patches are new
     ("[vlm]", "pixtral-12b", {"n_layers": 1}, 4, 64, False),
-    # full depth (12 + 12 layers), 16 source frames
-    ("[audio]", "seamless-m4t-medium", {}, 4, 64, False),
+    # 6 + 6 of 12 + 12 layers (full depth until phase K came), 16
+    # source frames
+    ("[audio]", "seamless-m4t-medium",
+     {"n_layers": 6, "n_encoder_layers": 6}, 4, 64, False),
 )
 
 
@@ -2511,15 +2535,16 @@ def _maint_h2(cfg, dev, ckdir: str, rss):
 
 def phase_maint(dev, ckdir: str):
     """Phase H: the maintenance service, the segmented journal and the
-    peer tier (H1 gpt2-l cut to 12 of 36 layers, H2 and H3 to 4; H1 ran
-    at full depth until phase I needed the script's time). Returns the
+    peer tier (H1 gpt2-l cut to 8 of 36 layers, H2 and H3 to 4; H1 ran
+    at full depth until phase I and at 12 layers until phase K needed
+    the script's time). Returns the
     summed K1/K2/K4/K7 launches of their paths."""
     import torch
     from repro_torch.configs import get_config
     gpt2 = get_config("gpt2-l")
     cut = gpt2.replace(n_layers=4)
     total = {k: 0 for k in PATH_KERNELS["topk"] + ("quant_span_apply",)}
-    for fn, cfg in ((_maint_h1, gpt2.replace(n_layers=12)),
+    for fn, cfg in ((_maint_h1, gpt2.replace(n_layers=8)),
                     (_maint_h2, cut)):
         shutil.rmtree(ckdir, ignore_errors=True)
         _release_pinned()
@@ -2882,6 +2907,253 @@ def phase_serve(dev, ckdir: str):
     return j1["launches"]
 
 
+# ---------------------------------------------------------------- phase K
+#: phase K2's abstract (data, model) layout: what each of 8 ranks holds
+DIST_LAYOUT = (2, 4)
+
+
+def _dist_k2(model, grads, rho: float):
+    """K2: ``compress_sharded`` of ``grads`` (whole leaves) under the
+    abstract ``DIST_LAYOUT`` mesh, every distinct block through K1 on the
+    card, then each block's rows held against K1's plain version on the
+    same block, bitwise, in ``out_spec`` order. Returns (launches, ms)."""
+    import itertools
+    import torch
+    from repro_torch import tree_leaves, tree_map
+    from repro_torch.compression.sparse import SparseGrad, k_for
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import step_builder as sb
+    from repro_torch.kernels import build, ref
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(*DIST_LAYOUT)
+    if shd.is_live(mesh):
+        fail(f"phase K2's {DIST_LAYOUT} layout came out live")
+    with shd.use_mesh(mesh, model.cfg.rules("train")):
+        psh = sb.param_shardings(model)
+    pspecs = tree_map(lambda s: s.spec, psh,
+                      is_leaf=lambda x: isinstance(x, shd.NamedSharding))
+    before = build.LAUNCHES["topk_select"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cg = sb.compress_sharded(grads, pspecs, mesh, rho)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = build.LAUNCHES["topk_select"] - before
+    counts = dict(build.LAUNCHES)
+    sizes, k = shd.mesh_shape(mesh), k_for(rho)
+    blocks, orders = 0, {}
+    for g, spec, sg in zip(tree_leaves(grads), shd.spec_leaves(pspecs),
+                           tree_leaves(cg, is_leaf=lambda x: isinstance(
+                               x, SparseGrad))):
+        order = spec.axes()
+        orders[order] = orders.get(order, 0) + 1
+        row = 0
+        for c in itertools.product(*(range(sizes[a]) for a in order)):
+            coord = {a: 0 for a in sizes}
+            coord.update(zip(order, c))
+            blk = g[shd.block_slices(tuple(g.shape), spec, mesh, coord)]
+            xb, nb = ref.to_blocks(blk.contiguous(), 1024)
+            v, i = ref.topk_select_ref(xb, k)
+            if not (bits_equal(sg.values[row:row + nb], v)
+                    and bits_equal(sg.indices[row:row + nb], i)):
+                fail(f"K2: K1 on the {tuple(blk.shape)} block {coord} of a "
+                     f"{tuple(g.shape)} leaf ({tuple(spec)}) != its plain "
+                     f"version or out of out_spec order")
+            row += nb
+            blocks += 1
+        if row != sg.values.shape[0]:
+            fail(f"K2: {sg.values.shape[0]} rows for {row} block rows")
+    build.LAUNCHES.update(counts)
+    if launches != blocks:
+        fail(f"K2: {launches} K1 launches for {blocks} distinct blocks")
+    log(f"[dist] K2 shard-local K1 of the last gradient "
+        f"({sum(g.numel() for g in tree_leaves(grads))} f32) under the "
+        f"abstract (data {DIST_LAYOUT[0]}, model {DIST_LAYOUT[1]}) layout: "
+        f"{blocks} distinct blocks, {launches} K1 launches, {ms:.2f} ms "
+        f"in all; every block bitwise equal to the plain version, rows in "
+        f"out_spec order (leaves by concat axes: "
+        f"{ {'x'.join(o) or 'none': n for o, n in orders.items()} })")
+    return launches, ms
+
+
+def _dist_serve(model, params, psh, mesh, dev, B=8, P=16, gen=8):
+    """K3: sharded prefill and decode on the live mesh against
+    ``logits_fn`` and ``decode_step``, bitwise."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import step_builder as sb
+    from repro_torch import tree_leaves
+    with shd.use_mesh(mesh, model.cfg.rules("decode")):
+        pre, _, _ = sb.make_sharded_prefill_step(
+            model, ShapeConfig("prefill", P, B, "prefill"))
+        serve, _, cache_abs, _ = sb.make_sharded_serve_step(
+            model, ShapeConfig("decode", P + gen, B, "decode"))
+        cache_sh = shd.safe_sharding_tree(cache_abs, model.cache_logical())
+    prompt = make_batch(model.cfg, P, B, step=7, device=dev)
+    local = sb.shard_tree(params, psh)
+    got = pre(local, prompt)
+    with torch.no_grad():
+        want = model.logits_fn(params, prompt)
+    if not bits_equal(got, want):
+        fail(f"K3: sharded prefill != logits_fn (max |d| "
+             f"{abs_err(got, want):.3g})")
+    cache = sb.shard_tree(model.init_cache(B, P + gen, device=dev), cache_sh)
+    ucache = model.init_cache(B, P + gen, device=dev)
+    ms, ums = [], []
+    for pos in range(gen):
+        db = {"tokens": prompt["tokens"][:, pos:pos + 1].contiguous(),
+              "pos": torch.tensor(pos, dtype=torch.int32, device=dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = serve(local, cache, db)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            ul, ucache = model.decode_step(params, ucache, db, P + gen)
+        torch.cuda.synchronize()
+        ms.append((t1 - t0) * 1e3)
+        ums.append((time.perf_counter() - t1) * 1e3)
+        if not bits_equal(lg, ul):
+            fail(f"K3: sharded decode != decode_step at pos {pos} (max "
+                 f"|d| {abs_err(lg, ul):.3g})")
+    if not all(bits_equal(a, b) for a, b in zip(
+            tree_leaves(sb.gather_tree(cache, cache_sh)),
+            tree_leaves(ucache))):
+        fail("K3: the sharded decode cache != the unsharded one")
+    log(f"[dist] K3 sharded prefill (B {B}, prompt {P}) and {gen} sharded "
+        f"decode steps bitwise equal to logits_fn / decode_step, cache "
+        f"too; decode step ms sharded {[round(x, 2) for x in ms]} "
+        f"(gathers every weight and cache leaf), unsharded "
+        f"{[round(x, 2) for x in ums]}")
+
+
+def phase_dist(dev, backend: str = "nccl"):
+    """Phase K: ``repro_torch.distributed`` on full-width, full-depth
+    gpt2-l (36 L, 1,072,469,760 params, f32; batch 4 x seq 64) over a
+    process group of one rank (NCCL on the card; ``backend`` exists for
+    rehearsals on the CPU), initialised through a ``FileStore`` in a
+    temporary directory and destroyed at the phase's end. K1: three
+    ``lowdiff_sharded`` steps on the live (1, 1) mesh, each followed by
+    the unsharded ``lowdiff_plus`` step and ``compress_tree`` from the
+    same state and batch: state, loss and payload bitwise equal (the
+    unsharded run's launches are the comparison's and put back). K2:
+    ``_dist_k2`` on K1's last gradient. K3: ``_dist_serve`` from K1's
+    trained params. Returns the path's K1 (K1's steps and K2) and K3
+    launches."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree_leaves
+    from repro_torch.compression.sparse import SparseGrad, compress_tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.steps import init_state, make_train_step
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import step_builder as sb
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import build_model
+    t_phase = time.perf_counter()
+    cfg = get_config("gpt2-l")
+    model = build_model(cfg)
+    rho, B, S, steps = 0.01, 4, 64, 3
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        if dist.get_backend() != backend:
+            fail(f"phase K: the group's backend is {dist.get_backend()}")
+        mesh = make_local_mesh(1, 1)
+        if not shd.is_live(mesh):
+            fail("phase K: make_local_mesh(1, 1) is not live")
+        t0 = time.perf_counter()
+        probe = torch.ones(1024, device=dev)
+        col.all_reduce_(probe, shd.axis_group(mesh, ("data", "model")))
+        torch.cuda.synchronize()
+        log(f"[dist] {backend} group of 1 rank, mesh {shd.mesh_shape(mesh)} "
+            f"on {mesh.device_type}: {t0 - t_phase:.2f} s; first "
+            f"collective (communicator set-up) "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        with shd.use_mesh(mesh, cfg.rules("train")):
+            step, _, _ = sb.make_sharded_train_step(
+                model, ShapeConfig("train", S, B, "train"),
+                mode="lowdiff_sharded", rho=rho)
+            st_sh = sb.state_shardings(model, mode="lowdiff_sharded",
+                                       error_feedback=False)
+        ustep = make_train_step(model, mode="lowdiff_plus", rho=rho)
+        torch.cuda.reset_peak_memory_stats()
+        ustate = init_state(model, 0, mode="lowdiff_plus", device=dev)
+        sstate = sb.shard_tree(ustate, st_sh)
+        stream = TokenStream(cfg, S, B, seed=0, device=dev)
+        is_sg = lambda x: isinstance(x, SparseGrad)  # noqa: E731
+        path = {"topk_select": 0, "adam_tile_update": 0}
+        sms, ums, losses = [], [], []
+        for i in range(steps):
+            b = next(stream)
+            torch.cuda.synchronize()
+            before = dict(build.LAUNCHES)
+            t0 = time.perf_counter()
+            sstate, smet, scg = step(sstate, b)
+            torch.cuda.synchronize()
+            sms.append((time.perf_counter() - t0) * 1e3)
+            for k in path:
+                path[k] += build.LAUNCHES[k] - before[k]
+            counts = dict(build.LAUNCHES)
+            t0 = time.perf_counter()
+            ustate, umet, grads = ustep(ustate, b)
+            ucg = compress_tree(grads, rho)
+            torch.cuda.synchronize()
+            ums.append((time.perf_counter() - t0) * 1e3)
+            build.LAUNCHES.update(counts)
+            if not _same_state(sstate, ustate):
+                fail(f"K1: sharded state != unsharded after step {i + 1}")
+            if not bits_equal(smet["loss"], umet["loss"]):
+                fail(f"K1: sharded loss {float(smet['loss'])} != "
+                     f"{float(umet['loss'])} at step {i + 1}")
+            got = tree_leaves(scg, is_leaf=is_sg)
+            want = tree_leaves(ucg, is_leaf=is_sg)
+            if len(got) != len(want) or not all(
+                    bits_equal(a.values, c.values)
+                    and bits_equal(a.indices, c.indices)
+                    and tuple(a.shape) == tuple(c.shape)
+                    for a, c in zip(got, want)):
+                fail(f"K1: shard-local payload != compress_tree at step "
+                     f"{i + 1}")
+            losses.append(float(smet["loss"]))
+            del scg, ucg, got, want
+        if path["topk_select"] <= 0 or path["adam_tile_update"] <= 0:
+            fail(f"K1: the sharded step did not launch K1 and K3 ({path})")
+        log(f"[dist] K1 {steps} lowdiff_sharded steps of full gpt2-l "
+            f"({model.n_params()} params, state "
+            f"{sum(t.numel() * t.element_size() for t in _state_leaves(sstate))}"
+            f" B) on the (1, 1) mesh: state, loss and payload bitwise equal "
+            f"to lowdiff_plus + compress_tree each step; step ms sharded "
+            f"{[round(x, 2) for x in sms]}, unsharded (+ compress_tree) "
+            f"{[round(x, 2) for x in ums]}; losses "
+            f"{[round(x, 5) for x in losses]}; launches {path}; peak device "
+            f"memory {torch.cuda.max_memory_allocated()} B")
+        del ustate
+        params = sstate["params"]
+        psh = st_sh["params"]
+        del sstate
+        torch.cuda.empty_cache()
+        k2, _ = _dist_k2(model, grads, rho)
+        path["topk_select"] += k2
+        del grads
+        torch.cuda.empty_cache()
+        _dist_serve(model, params, psh, mesh, dev)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[time] phase K: {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
 # ---------------------------------------------------------------- profile
 def phase_profile(cfg, dev, steps: int = 2):
     """``--profile``: torch.profiler over warm lowdiff and dense steps
@@ -2965,9 +3237,11 @@ KERNELS = [
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("all", "kernels", "families",
-                                       "serve"),
+                                       "serve", "hymba-f32", "dist"),
                     default="all", help="kernels: stop after phase A; "
-                    "families / serve: the build and phase I / J alone")
+                    "families / serve / dist: the build and phase I / J / K "
+                    "alone; hymba-f32: the build and J2's Hymba with f32 "
+                    "compute")
     ap.add_argument("--profile", action="store_true",
                     help="also profile warm lowdiff and dense steps")
     ap.add_argument("--ckpt-dir", default=os.path.join(HERE, "build",
@@ -2996,11 +3270,21 @@ def main() -> int:
     cfg = get_config("gpt2-l")
 
     phase_build()
-    if args.only in ("families", "serve"):
-        phase = phase_families if args.only == "families" else phase_serve
-        got = phase(dev, args.ckpt_dir)
-        log(f"[done] build + phase {'I' if args.only == 'families' else 'J'}"
-            f" passed in {time.perf_counter() - t_all:.1f} s; launches {got}")
+    if args.only in ("families", "serve", "hymba-f32", "dist"):
+        if args.only == "dist":
+            got = phase_dist(dev)
+        elif args.only == "hymba-f32":
+            tag, arch, cut, B, P, gen = next(
+                m for m in SERVE_MODELS if m[1] == "hymba-1.5b")
+            got = _serve_family("[hybrid f32]", arch,
+                                dict(cut, compute_dtype="float32"), B, P,
+                                gen, dev)
+        else:
+            phase = phase_families if args.only == "families" \
+                else phase_serve
+            got = phase(dev, args.ckpt_dir)
+        log(f"[done] build + --only {args.only} passed in "
+            f"{time.perf_counter() - t_all:.1f} s; launches {got}")
         print(smi, flush=True)
         return 0
     res = phase_parity(cfg, dev)
@@ -3067,6 +3351,10 @@ def main() -> int:
         for k in PATH_KERNELS["topk"]:
             launches[k] += got[k]
         log(f"[time] + phase J: {time.perf_counter() - t_all:.1f} s")
+        got = phase_dist(dev)
+        for k, v in got.items():
+            launches[k] += v
+        log(f"[time] + phase K: {time.perf_counter() - t_all:.1f} s")
     if args.profile:
         phase_profile(cfg, dev)
     kernels = []

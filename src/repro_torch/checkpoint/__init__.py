@@ -6,7 +6,8 @@ from repro_torch.checkpoint.backends import (BACKENDS,  # noqa: F401
                                              LocalFSBackend,
                                              MemoryTierBackend,
                                              ShardedBackend, StorageBackend,
-                                             make_backend)
+                                             make_backend,
+                                             make_pspec_splitter)
 from repro_torch.checkpoint.config import (StoreConfig,  # noqa: F401
                                            StoreConfigError, TierSpec)
 from repro_torch.checkpoint.io import FORMATS, FrameCorruptionError  # noqa: F401
@@ -14,6 +15,11 @@ from repro_torch.checkpoint.journal import (JournalSegment,  # noqa: F401
                                             JournalTap, ManifestJournal,
                                             MemoryJournal,
                                             SegmentedManifestJournal)
+from repro_torch.checkpoint.patchset import (PatchSet,  # noqa: F401
+                                             RowUpdate, Span,
+                                             mask_to_intervals,
+                                             merge_span_chain,
+                                             row_update_from_spans)
 from repro_torch.checkpoint.peer import (LoopbackTransport,  # noqa: F401
                                          PeerGroup, PeerHub, PeerInfo,
                                          PeerNode, PeerReplicaBackend,

@@ -1,6 +1,5 @@
 """Checkpoint storage backends (port of ``repro.checkpoint.backends``;
-the mesh-following shard splitter is not ported; the peer tier is in
-:mod:`repro_torch.checkpoint.peer`).
+the peer tier is in :mod:`repro_torch.checkpoint.peer`).
 
 A backend is a key -> tree blob store; :class:`repro_torch.checkpoint.
 store.CheckpointStore` layers the full/diff/batch chain semantics and
@@ -45,13 +44,6 @@ def split_sizes(extent: int, parts: int) -> List[int]:
     return [base + 1 if i < rem else base for i in range(parts)]
 
 
-def _patchset(patch) -> PatchSet:
-    if not isinstance(patch, PatchSet):
-        raise TypeError(f"patch takes a PatchSet, not "
-                        f"{type(patch).__name__}")
-    return patch
-
-
 class StorageBackend(abc.ABC):
     """Key -> checkpoint blob store. Keys are flat path-safe strings."""
 
@@ -93,7 +85,9 @@ class StorageBackend(abc.ABC):
     def patch(self, key: str, patch: PatchSet) -> int:
         """Rewrite the row spans of a :class:`PatchSet` into the frame
         blob ``key`` in place (the fold of a patch chain into its base).
-        Returns bytes written. npz blobs raise ``ValueError``."""
+        Implementations coerce, so a legacy ``{name: whole_array}`` dict
+        patches whole leaves. Returns bytes written. npz blobs raise
+        ``ValueError``."""
         raise NotImplementedError(
             f"{self.name} backend cannot patch blobs in place")
 
@@ -194,7 +188,7 @@ class LocalFSBackend(StorageBackend):
             raise ValueError(
                 f"cannot patch npz blob {key!r} in place; incremental "
                 f"persistence requires the frame format")
-        return cio.patch_frame(path, _patchset(patch))
+        return cio.patch_frame(path, PatchSet.coerce(patch))
 
     def delete(self, key: str) -> None:
         for fmt in self.SUFFIXES:
@@ -446,12 +440,18 @@ class MemoryTierBackend(StorageBackend):
         """Patch the resident arrays in place (a whole-leaf span replaces
         the array with a copy; row spans are spliced in) and forward the
         patch to the lower tier through the same FIFO write-back worker,
-        after the blob's own write-back."""
-        ps = _patchset(patch)
+        after the blob's own write-back. While a write-back of the blob
+        is still running it reads the resident arrays, so a patched leaf
+        is copied first: splicing into the buffer being written would
+        tear the lower tier's copy (bytes hashed != bytes written)."""
+        ps = PatchSet.coerce(patch)
         self._prune_done()
         n = 0
         with self._lock:
             item = self._mem.get(key)
+            pending = self._inflight.get(key)
+            shared = pending is not None and not pending.done()
+            copied = set()
             if item is not None:
                 _, arrays, _ = item
                 for name in ps:
@@ -471,10 +471,13 @@ class MemoryTierBackend(StorageBackend):
                                 f"{base.dtype}{base.shape}")
                         if whole:
                             arrays[i] = base = np.array(a)
+                            copied.add(i)
                         else:
-                            if not base.flags.writeable:
+                            if not base.flags.writeable or (
+                                    shared and i not in copied):
                                 base = np.array(base)
                                 arrays[i] = base
+                                copied.add(i)
                             base[sp.start:sp.stop] = a
                         n += int(a.nbytes)
         if item is None and self.lower is None:
@@ -593,12 +596,41 @@ class MemoryTierBackend(StorageBackend):
 # Sharded concurrent backend
 # ----------------------------------------------------------------------
 
-def default_split_axis(arr: np.ndarray) -> Optional[int]:
-    """Split axis of a leaf: its largest dimension (what the reference
-    picks when no mesh is active)."""
-    if not arr.shape:
+def pspec_split_axis(shape: Tuple[int, ...],
+                     logical: Optional[Tuple[Optional[str], ...]] = None
+                     ) -> Optional[int]:
+    """The split axis of a leaf from the active mesh's partition specs
+    (:mod:`repro_torch.distributed.sharding`): the first dimension the
+    spec shards. Without a mesh or logical axes: the largest dimension."""
+    from repro_torch.distributed import sharding
+    ctx = sharding.current()
+    if ctx is not None and logical is not None:
+        spec = sharding.safe_spec(shape, ctx.spec(logical), ctx.mesh)
+        for i, ax in enumerate(spec):
+            if ax is not None:
+                return i
+    if not shape:
         return None
-    return int(np.argmax(arr.shape))
+    return int(np.argmax(shape))
+
+
+def default_split_axis(arr: np.ndarray) -> Optional[int]:
+    """Split axis of a leaf: its largest dimension (the backend has no
+    logical axis names for packed leaves)."""
+    return pspec_split_axis(arr.shape)
+
+
+def make_pspec_splitter(logical_by_shape: Dict[Tuple[int, ...],
+                                               Tuple[Optional[str], ...]]):
+    """A ``split_axis_fn`` for :class:`ShardedBackend` that follows the
+    active mesh's partition specs. ``logical_by_shape`` maps a leaf shape
+    to its logical axes (shapes are the stable handle once trees are
+    packed to flat array lists); other leaves split on their largest
+    dimension."""
+    def split_axis(arr: np.ndarray) -> Optional[int]:
+        return pspec_split_axis(arr.shape,
+                                logical_by_shape.get(tuple(arr.shape)))
+    return split_axis
 
 
 class ShardedBackend(StorageBackend):
@@ -765,7 +797,7 @@ class ShardedBackend(StorageBackend):
         axis, same ``array_split`` boundaries) and write the intersecting
         pieces into their shard frames concurrently. The meta file never
         changes."""
-        ps = _patchset(patch)
+        ps = PatchSet.coerce(patch)
         meta = self._read_meta(key)
         if meta.get("format", "npz") != "frame":
             raise ValueError(

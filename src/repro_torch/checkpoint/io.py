@@ -149,10 +149,24 @@ class CopyMeter:
             return None
         return max(0.0, 1.0 - self._d2h_wait.sum / span)
 
+    def instruments(self):
+        """The backing :class:`~repro_torch.obs.metrics.InstrumentSet`."""
+        return self._inst
+
     def stats(self) -> Dict[str, Any]:
         out = {k: getattr(self, k) for k in self.KEYS}
         out["d2h_overlap_ratio"] = self.d2h_overlap_ratio()
         return out
+
+    def reset(self) -> None:
+        self._bytes.reset()
+        self._events.reset()
+        self._h2d_bytes.reset()
+        self._h2d_events.reset()
+        self._d2h_bytes.reset()
+        self._d2h_events.reset()
+        self._d2h_wait.reset()
+        self._d2h_span.reset()
 
 
 COPY_METER = CopyMeter()
@@ -536,11 +550,12 @@ def set_patch_crash_hook(hook) -> None:
     _PATCH_CRASH_HOOK = hook
 
 
-def patch_frame(path: str, patch: PatchSet) -> int:
+def patch_frame(path: str, updates) -> int:
     """In-place partial rewrite of a frame file: overwrite the patched
     row ranges at ``leaf_offset + row_start * row_stride`` (the layout
     never moves), then rewrite the header with the new sha256s
-    (``patch`` is a :class:`PatchSet`). Write order
+    (``updates`` is anything :meth:`PatchSet.coerce` takes: a
+    :class:`PatchSet` or a legacy ``{name: array}`` dict). Write order
     is the crash-consistency contract: span bytes are written and
     fsync'd first, each patched leaf's sha256 is recomputed (over the
     whole leaf, read back, when only some rows changed), and the header
@@ -548,9 +563,7 @@ def patch_frame(path: str, patch: PatchSet) -> int:
     leaves torn ranges or stale digests, which is why callers journal
     each patch as a durable blob before folding it. Returns bytes
     written."""
-    if not isinstance(patch, PatchSet):
-        raise TypeError(f"patch_frame takes a PatchSet, not "
-                        f"{type(patch).__name__}")
+    patch = PatchSet.coerce(updates)
     hook = _PATCH_CRASH_HOOK
     magic_len = len(FRAME_MAGIC)
     with open(path, "r+b") as f:

@@ -7,7 +7,9 @@
   patch blob (a NamedTuple registered with the frame codec under the
   reference's class name, so both packages read each other's blobs).
 * :class:`PatchSet` — ``frame leaf name -> ordered disjoint spans`` plus
-  each leaf's full shape: what ``LocalFSBackend.patch`` takes.
+  each leaf's full shape: what every backend's ``patch`` takes;
+  :meth:`PatchSet.coerce` upgrades a legacy ``{name: array}`` dict (or
+  ``{name: [Span, ...]}`` / ``{name: RowUpdate}``) to one.
 * :func:`mask_to_intervals` and :func:`merge_span_chain` — dirty-mask
   to spans with clean-gap bridging, and newest-wins merging of a patch
   chain, shared by the replica tracker and the fold.
@@ -56,6 +58,17 @@ class RowUpdate(NamedTuple):
     @property
     def nbytes(self) -> int:
         return int(sum(np.asarray(r).nbytes for r in self.rows))
+
+
+def row_update_from_spans(spans: Sequence[Span],
+                          shape: Sequence[int]) -> RowUpdate:
+    """A :class:`RowUpdate` of ``spans`` (sorted by start) of a leaf of
+    full ``shape``."""
+    spans = sorted(spans, key=lambda sp: sp.start)
+    return RowUpdate(
+        starts=np.asarray([sp.start for sp in spans], np.int64),
+        rows=[np.asarray(sp.data) for sp in spans],
+        shape=tuple(int(x) for x in shape))
 
 
 class PatchSet:
@@ -119,6 +132,39 @@ class PatchSet:
             self.add(name, sp.start, sp.data, shape)
         return self
 
+    @classmethod
+    def from_arrays(cls, updates: Dict[str, np.ndarray]) -> "PatchSet":
+        """Whole-leaf compatibility path: every value becomes one span
+        covering its leaf."""
+        ps = cls()
+        for name, arr in updates.items():
+            ps.add(name, 0, np.asarray(arr))
+        return ps
+
+    @classmethod
+    def coerce(cls, obj) -> "PatchSet":
+        """A PatchSet as is; a legacy ``{name: array}`` dict as whole
+        leaves; a ``{name: RowUpdate}`` dict with its declared shapes; a
+        ``{name: [Span, ...]}`` dict with the extent bounded by the last
+        span (the frame header validates it)."""
+        if isinstance(obj, cls):
+            return obj
+        if not isinstance(obj, dict):
+            raise TypeError(f"cannot coerce {type(obj).__name__} to "
+                            f"PatchSet")
+        ps = cls()
+        for name, v in obj.items():
+            if isinstance(v, RowUpdate):
+                ps.add_spans(name, v.spans(), v.shape)
+            elif isinstance(v, (list, tuple)) \
+                    and all(isinstance(s, Span) for s in v) and v:
+                stop = max(s.stop for s in v)
+                tail = np.asarray(v[0].data).shape[1:]
+                ps.add_spans(name, list(v), (stop,) + tuple(tail))
+            else:
+                ps.add(name, 0, np.asarray(v))
+        return ps
+
     def __iter__(self) -> Iterator[str]:
         return iter(sorted(self._spans))
 
@@ -130,6 +176,9 @@ class PatchSet:
 
     def __getitem__(self, name: str) -> Tuple[Span, ...]:
         return tuple(self._spans[name])
+
+    def __bool__(self) -> bool:
+        return bool(self._spans)
 
     def names(self) -> List[str]:
         return sorted(self._spans)

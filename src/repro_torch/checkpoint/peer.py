@@ -69,7 +69,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.checkpoint import io as cio
-from repro_torch.checkpoint.backends import StorageBackend, _patchset
+from repro_torch.checkpoint.backends import StorageBackend
 from repro_torch.checkpoint.patchset import PatchSet
 from repro_torch.checkpoint.remote import (ChecksumError, FaultInjector,
                                            RetryExhaustedError,
@@ -275,12 +275,8 @@ class PeerNode:
         fold and stay current."""
         updates = (payload if isinstance(payload, dict)
                    else cio.frame_loads(payload))
-        if PatchSet.is_tree(updates):
-            ps = PatchSet.from_tree(updates)
-        else:                    # legacy {leaf_name: array}: whole leaves
-            ps = PatchSet()
-            for name, arr in updates.items():
-                ps.add(name, 0, np.asarray(arr))
+        ps = (PatchSet.from_tree(updates) if PatchSet.is_tree(updates)
+              else PatchSet.coerce(updates))
         with self._lock:
             hit = self._blobs.get(key)
         if hit is None:
@@ -959,7 +955,7 @@ class PeerReplicaBackend(StorageBackend):
             f"{len(candidates)} peers")
 
     def patch(self, key: str, patch: PatchSet) -> int:
-        ps = _patchset(patch)
+        ps = PatchSet.coerce(patch)
         n = self.lower.patch(key, ps)
         if self.replicas > 0:
             # range PATCH on the wire: the PatchSet's serializable tree,

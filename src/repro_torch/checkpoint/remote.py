@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.checkpoint import io as cio
-from repro_torch.checkpoint.backends import StorageBackend, _patchset
+from repro_torch.checkpoint.backends import StorageBackend
 from repro_torch.checkpoint.patchset import PatchSet
 from repro_torch.obs.trace import trace_span
 
@@ -493,7 +493,7 @@ class RemoteObjectBackend(StorageBackend):
         downloaded once and spliced. The index write is the commit
         point, exactly as in ``put``: a crash mid-patch leaves the old
         index live and only orphan chunks behind."""
-        ps = _patchset(patch)
+        ps = PatchSet.coerce(patch)
         index = self._load_index(key)
         if index.get("format", "npz") != "frame":
             raise ValueError(

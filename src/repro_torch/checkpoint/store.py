@@ -184,6 +184,10 @@ class CheckpointStore:
         return int(self._gc_deleted.value)
 
     @property
+    def quarantined_count(self) -> int:
+        return int(self._quarantined.value)
+
+    @property
     def folds(self) -> int:
         return int(self._folds.value)
 

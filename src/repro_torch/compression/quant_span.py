@@ -169,6 +169,16 @@ class QuantSpan:
                    scales=scales, shape=tuple(int(d) for d in shape),
                    bits=int(bits), dtype=np.dtype(dtype).name)
 
+    @classmethod
+    def from_row_update(cls, ru, bits: int) -> "QuantSpan":
+        """Quantize a :class:`~repro_torch.checkpoint.patchset.RowUpdate`
+        (its spans, full shape and row dtype)."""
+        spans = ru.spans()
+        return cls.from_rows([sp.start for sp in spans],
+                             [sp.data for sp in spans], tuple(ru.shape),
+                             bits, dtype=ru.rows[0].dtype if ru.rows
+                             else np.float32)
+
 
 # ----------------------------------------------------------------------
 # metering
@@ -220,10 +230,20 @@ class QuantMeter:
             return None
         return self.bytes_in / self.bytes_out
 
+    def instruments(self):
+        """The backing :class:`~repro_torch.obs.metrics.InstrumentSet`."""
+        return self._inst
+
     def stats(self) -> Dict[str, Any]:
         out = {k: getattr(self, k) for k in self.KEYS}
         out["ratio"] = self.ratio()
         return out
+
+    def reset(self) -> None:
+        self._encode.reset()
+        self._decode.reset()
+        self._bytes_in.reset()
+        self._bytes_out.reset()
 
 
 QUANT_METER = QuantMeter()

@@ -77,6 +77,29 @@ def topk_decompress(sg: SparseGrad):
     return ops.topk_decompress(sg)
 
 
+def randomk_compress(x, rho: float, gen, *, block: int = BLOCK) -> SparseGrad:
+    """Random-k sparsification (the same container): per block, the k
+    positions of the largest uniform draws from the ``torch.Generator``
+    ``gen`` (the reference takes a JAX key; its bits are not
+    reproducible here), values scaled by ``block / k`` (unbiased)."""
+    import torch
+    from repro_torch.kernels.ref import to_blocks
+    xb, _ = to_blocks(x, block)
+    k = k_for(rho, block)
+    noise = torch.rand(xb.shape, generator=gen, device=gen.device)
+    _, idx = torch.topk(noise.to(xb.device), k, dim=1)
+    vals = torch.gather(xb, 1, idx) * (block / k)
+    return SparseGrad(vals, idx.to(torch.int32), tuple(x.shape), block)
+
+
+def sparse_add(a: SparseGrad, b: SparseGrad):
+    """Accumulate two compressed grads (batched-write 'sum' mode), dense."""
+    if a.shape != b.shape or a.block != b.block:
+        raise ValueError(f"sparse_add of {a.shape}/{a.block} and "
+                         f"{b.shape}/{b.block}")
+    return topk_decompress(a) + topk_decompress(b)
+
+
 def is_compressed(x) -> bool:
     """A wire container of any compressor: top-k (``SparseGrad``),
     quant8 (``QuantGrad``) or packed (``PackedDiff``)."""
@@ -103,4 +126,9 @@ def tree_nbytes(cg) -> int:
     """Wire bytes of a compressed tree (indices at 2 B, as on disk)."""
     return sum(l.nbytes for l in tree_leaves(cg, is_leaf=is_compressed)
                if is_compressed(l))
+
+
+def dense_nbytes(tree) -> int:
+    """Bytes of a tree of dense tensors or arrays."""
+    return sum(_nbytes(l, _itemsize(l)) for l in tree_leaves(tree))
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-from repro_torch.checkpoint.config import StoreConfig
+from repro_torch.checkpoint.config import StoreConfig, StoreConfigError
 from repro_torch.core.steps import COMPRESSORS
 
 STRATEGIES = ("none", "lowdiff", "lowdiff_plus", "checkfreq", "gemini",
@@ -162,6 +162,30 @@ class EngineConfig:
                 peer_fault_rate=flag("peer_fault_rate", 0.0),
                 simulate_peers=True)
         cfg = cls(store=store, **kw)
+        cfg.validate()
+        return cfg
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The reference's dict: every field but ``device`` (where the
+        engine runs is not what it persists), the store as its own
+        dict. JSON round-trips through either package's ``from_dict``."""
+        out = {f.name: getattr(self, f.name)
+               for f in dataclasses.fields(self)
+               if f.name not in ("store", "device")}
+        out["store"] = None if self.store is None else self.store.to_dict()
+        return out
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EngineConfig":
+        """Inverse of :meth:`to_dict`; also takes ``device``."""
+        d = dict(d)
+        store_raw = d.pop("store", None)
+        known = {f.name for f in dataclasses.fields(cls)}
+        for k in d:
+            if k not in known:
+                raise StoreConfigError(f"{k}: unknown field")
+        cfg = cls(store=(None if store_raw is None
+                         else StoreConfig.from_dict(store_raw)), **d)
         cfg.validate()
         return cfg
 

@@ -233,6 +233,10 @@ class SnapshotArena:
     def _release(self) -> None:
         self._sem.release()
 
+    def instruments(self):
+        """The backing :class:`~repro_torch.obs.metrics.InstrumentSet`."""
+        return self._inst
+
     def stats(self) -> Dict[str, int]:
         return {"slots": self.slots, "snapshots": self.snapshots,
                 "stalls": self.stalls}

@@ -169,11 +169,13 @@ def _apply_tree(params, payloads, opt: AdamState, hyper, count):
 def make_train_step(model, *, mode: str = "lowdiff", rho: float = 0.01,
                     lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
                     eps: float = 1e-8, error_feedback: bool = True,
-                    compressor: str = "topk"):
+                    compressor: str = "topk", reduce_grads=None):
     """``step(state, batch) -> (state', metrics, extra)``; extra is the
     compressed gradient tree in lowdiff mode, the dense gradient tree in
     lowdiff_plus mode, else None. ``compressor``: 'topk', 'quant8' or
-    'packed'; error feedback applies to topk and packed."""
+    'packed'; error feedback applies to topk and packed.
+    ``reduce_grads(grads) -> grads`` runs between the gradient and the
+    update (the sharded step's sum over data shards)."""
     if mode not in ("lowdiff", "dense", "lowdiff_plus"):
         raise ValueError(f"unknown step mode {mode!r}")
     if compressor not in COMPRESSORS:
@@ -189,6 +191,8 @@ def make_train_step(model, *, mode: str = "lowdiff", rho: float = 0.01,
     def step(state, batch):
         params = state["params"]
         loss, metrics, grads = _grads(model, params, batch, cfg.grad_accum)
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
         opt = state["opt"]
         count = opt.count + 1
         hyper = ops.adam_hyper_traced(lr, b1, b2, eps, count)

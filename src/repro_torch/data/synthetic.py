@@ -65,6 +65,38 @@ def make_batch(cfg: ArchConfig, seq_len: int, batch: int, *, step: int = 0,
     return {k: v.to(device) for k, v in out.items()}
 
 
+def input_specs(cfg: ArchConfig, shape, shardings=None
+                ) -> Dict[str, torch.Tensor]:
+    """The inputs of a ``ShapeConfig`` as ``meta`` tensors (shapes and
+    dtypes, no memory), the reference's dry-run stand-ins. ``shardings``:
+    optional {name -> placement}, carried as each tensor's ``.sharding``;
+    names: 'tokens', 'targets', 'loss_mask', 'patch_embeds',
+    'src_embeds', 'pos'."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def sds(shape_, dtype, name):
+        t = torch.empty(shape_, dtype=dtype, device="meta")
+        sh = (shardings or {}).get(name)
+        if sh is not None:
+            t.sharding = sh
+        return t
+
+    if shape.kind == "decode":
+        return {"tokens": sds((B, 1), torch.int32, "tokens"),
+                "pos": sds((), torch.int32, "pos")}
+    out = {"tokens": sds((B, S), torch.int32, "tokens"),
+           "targets": sds((B, S), torch.int32, "targets")}
+    if cfg.arch_type == "vlm":
+        P = min(cfg.n_patches or 16, S // 2)
+        out["patch_embeds"] = sds((B, P, cfg.frontend_dim), cfg.cdtype(),
+                                  "patch_embeds")
+        out["loss_mask"] = sds((B, S), torch.float32, "loss_mask")
+    if cfg.arch_type == "audio":
+        out["src_embeds"] = sds((B, encdec.src_len(cfg, S), cfg.d_model),
+                                cfg.cdtype(), "src_embeds")
+    return out
+
+
 class TokenStream:
     """Stateful iterator facade used by the training launcher."""
 

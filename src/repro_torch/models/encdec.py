@@ -148,6 +148,13 @@ def init_cache(cfg: ArchConfig, B: int, seq_len: int, device=None):
                        mk((L, B, Ss, KV, hd)), mk((L, B, Ss, KV, hd)))
 
 
+def cache_logical(cfg: ArchConfig):
+    """Logical-axis tree matching ``init_cache`` output (for sharding)."""
+    kv = ("layers", "batch", "kvseq", "kv_heads", None)
+    xkv = ("layers", "batch", "frames", "kv_heads", None)
+    return EncDecCache(kv, kv, xkv, xkv)
+
+
 def prefill_cache(params, batch, cfg: ArchConfig, B, seq_len):
     """Build the decode cache: encode the source, precompute every
     decoder layer's cross K/V."""

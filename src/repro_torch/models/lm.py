@@ -248,6 +248,26 @@ def init_cache(cfg: ArchConfig, B: int, seq_len: int, device=None):
     return DecodeCache(k=k, v=v)
 
 
+def cache_logical(cfg: ArchConfig):
+    """Logical-axis tree matching ``init_cache`` output (for sharding)."""
+    kv = ("layers", "batch", "kvseq", "kv_heads", None)
+    lin = la_logical()
+    if cfg.arch_type == "ssm":
+        mc = xlstm.MLSTMCache(lin, ("layers", "batch", None, "mlp"))
+        sc = xlstm.SLSTMState(*[("layers", "batch", "mlp")] * 4)
+        return DecodeCache(mlstm=mc, slstm=sc)
+    if cfg.arch_type == "hybrid":
+        mam = blocks.MambaCache(lin, ("layers", "batch", None, "mlp"))
+        return DecodeCache(k=kv, v=kv, mamba=mam)
+    return DecodeCache(k=kv, v=kv)
+
+
+def la_logical() -> la.LinState:
+    return la.LinState(("layers", "batch", None, None, "mlp"),
+                       ("layers", "batch", None, None),
+                       ("layers", "batch", None))
+
+
 def cache_slice(stacked, i: int):
     """Layer ``i`` of a stacked cache NamedTuple (views)."""
     return type(stacked)(*(cache_slice(f, i) if isinstance(f, tuple)

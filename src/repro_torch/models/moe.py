@@ -1,5 +1,5 @@
-"""Capacity-based top-k Mixture-of-Experts layer (port of
-``repro.models.moe``, single-device path).
+"""Capacity-based top-k Mixture-of-Experts layer, dense dispatch and
+expert parallel (port of ``repro.models.moe``).
 
 Dispatch is the cumsum/position-in-expert formulation (Switch/T5X
 style) with gather/scatter instead of a (tokens, experts, capacity)
@@ -7,9 +7,9 @@ one-hot einsum: an assignment's slot in its expert is the exclusive
 cumsum of the flattened ``(T·K, E)`` one-hot, assignments past the
 capacity go to a drop slot ``E·C`` that is thrown away, and the experts
 run as one batched matmul over ``(E, C, d)``. DeepSeekMoE-style shared
-experts are dense SwiGLU paths added on top. The reference's
-expert-parallel ``shard_map`` path needs a mesh and is not ported:
-``moe_apply`` always takes the dense path.
+experts are dense SwiGLU paths added on top. On a live mesh with a
+``model`` axis, :func:`moe_apply` takes the expert-parallel path
+(:func:`_moe_apply_ep`) where the reference does.
 """
 from __future__ import annotations
 
@@ -59,18 +59,37 @@ def top_k(probs, k: int):
 
 
 def moe_apply(p, x, cfg: ArchConfig):
-    """x: (B, S, d) -> (out, aux_loss). One device: the dense dispatch."""
+    """x: (B, S, d) -> (out, aux_loss).
+
+    On a live mesh whose ``model`` axis (ep ranks) divides the expert
+    count, with at least 16 tokens an expert, and with the batch not
+    split over ``model``, this takes the expert-parallel path: each model
+    rank owns E/ep experts. Under a live mesh ``x`` is this rank's data
+    shard, so the token count is its tokens times the data-parallel size
+    (the reference counts the global batch). Otherwise (no mesh, an
+    abstract one, decode's few tokens) the dense dispatch."""
+    from repro_torch.distributed import sharding as shd
+    ctx = shd.current()
+    if ctx is not None and shd.is_live(ctx.mesh) \
+            and "model" in shd.axis_names(ctx.mesh) \
+            and "model" not in ctx.spec(("batch",)).axes():
+        sizes = shd.mesh_shape(ctx.mesh)
+        ep = sizes["model"]
+        dp = math.prod(sizes[a] for a in ("pod", "data") if a in sizes)
+        T = x.shape[0] * x.shape[1] * dp
+        if ep > 1 and cfg.moe.n_experts % ep == 0 \
+                and T >= 16 * cfg.moe.n_experts:
+            return _moe_apply_ep(p, x, cfg, ctx, ep)
     return _moe_apply_dense(p, x, cfg)
 
 
-def route(p, xf, cfg: ArchConfig, C: int):
-    """The router and the dispatch plan of ``T`` tokens ``xf`` (T, d):
-    (gate (T,K) f32, eid (T,K), dest (T·K,) slot in ``E·C + 1``, valid
-    (T·K,), aux)."""
+def _gates(router, xf, cfg: ArchConfig):
+    """Router of ``T`` tokens ``xf`` (T, d): (gate (T,K) f32 normalised,
+    eid (T,K), the (T,K,E) one-hot of eid, aux)."""
     m = cfg.moe
     E, K = m.n_experts, m.top_k
     T = xf.shape[0]
-    logits = torch.matmul(xf, p["router"].to(xf.dtype))
+    logits = torch.matmul(xf, router.to(xf.dtype))
     probs = torch.softmax(logits.float(), dim=-1)                 # (T,E)
     gate, eid = top_k(probs, K)                                   # (T,K)
     gate = gate / torch.maximum(gate.sum(-1, keepdim=True),
@@ -80,6 +99,17 @@ def route(p, xf, cfg: ArchConfig, C: int):
     oh = F.one_hot(eid, E).float()                                # (T,K,E)
     frac = oh.sum(dim=(0, 1)) / (T * K)
     aux = E * torch.sum(frac * probs.mean(dim=0))
+    return gate, eid, oh, aux
+
+
+def route(p, xf, cfg: ArchConfig, C: int):
+    """The router and the dispatch plan of ``T`` tokens ``xf`` (T, d):
+    (gate (T,K) f32, eid (T,K), dest (T·K,) slot in ``E·C + 1``, valid
+    (T·K,), aux)."""
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    T = xf.shape[0]
+    gate, eid, oh, aux = _gates(p["router"], xf, cfg)
 
     # position-in-expert: exclusive cumsum over flattened (T*K) assignments
     oh_flat = oh.reshape(T * K, E)
@@ -102,30 +132,39 @@ def _moe_apply_dense(p, x, cfg: ArchConfig):
     xf = x.reshape(T, d)
     gate, _, dest, valid, aux = route(p, xf, cfg, C)
 
+    y = _experts(xf, gate, dest, valid, p["we_g"], p["we_u"], p["we_d"],
+                 E, C, K)
+    if m.n_shared:
+        y = y + _shared_expert(p, xf, x.dtype)
+    return y.reshape(B, S, d), aux
+
+
+def _experts(xf, gate, dest, valid, wg, wu, wd, E: int, C: int, K: int):
+    """Dispatch ``T`` tokens to the slots ``dest`` of ``E`` experts of
+    capacity ``C`` (slot ``E·C`` drops), run the experts, and combine
+    their outputs by the gates of the valid assignments: (T, d)."""
+    T, d = xf.shape
     # scatter per k-slot: within one slot the destinations are distinct
     # except the drop slot, whose row is thrown away
     dest_k = dest.reshape(T, K)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
     for kk in range(K):
         buf = buf.index_add(0, dest_k[:, kk], xf)
     xe = buf[:E * C].reshape(E, C, d)
 
-    g = torch.bmm(xe, p["we_g"].to(x.dtype))
-    u = torch.bmm(xe, p["we_u"].to(x.dtype))
-    h = F.silu(g.float()).to(x.dtype) * u
-    ye = torch.bmm(h, p["we_d"].to(x.dtype))
+    g = torch.bmm(xe, wg.to(xf.dtype))
+    u = torch.bmm(xe, wu.to(xf.dtype))
+    h = F.silu(g.float()).to(xf.dtype) * u
+    ye = torch.bmm(h, wd.to(xf.dtype))
 
     y_flat = torch.cat([ye.reshape(E * C, d),
-                        torch.zeros((1, d), dtype=x.dtype, device=x.device)])
+                        torch.zeros((1, d), dtype=xf.dtype, device=xf.device)])
     valid_k = valid.reshape(T, K)
-    y = torch.zeros((T, d), dtype=x.dtype, device=x.device)
+    y = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
     for kk in range(K):
-        w = (gate[:, kk] * valid_k[:, kk]).to(x.dtype)[:, None]
+        w = (gate[:, kk] * valid_k[:, kk]).to(xf.dtype)[:, None]
         y = y + y_flat[dest_k[:, kk]] * w
-
-    if m.n_shared:
-        y = y + _shared_expert(p, xf, x.dtype)
-    return y.reshape(B, S, d), aux
+    return y
 
 
 def _shared_expert(p, xf, dtype):
@@ -133,3 +172,75 @@ def _shared_expert(p, xf, dtype):
     us = torch.matmul(xf, p["ws_u"].to(dtype))
     hs = F.silu(gs.float()).to(dtype) * us
     return torch.matmul(hs, p["ws_d"].to(dtype))
+
+
+# --------------------------------------------------------------------------
+# expert-parallel path (the reference's shard_map, on torch.distributed)
+# --------------------------------------------------------------------------
+
+def _moe_apply_ep(p, x, cfg: ArchConfig, ctx, ep: int):
+    """Expert-parallel MoE: expert group e on model rank e. ``x`` is this
+    rank's data shard (B, S, d), replicated over ``model``; ``p`` the
+    whole layer params. Each rank routes its data shard's tokens (the
+    capacity is per data shard: the t5x/Switch group capacity; with one
+    shard it equals the dense path's), runs the assignments to its own
+    group, and the partial outputs are summed over ``model``: when
+    ``S % ep == 0`` (S > 1) the rank keeps its chunk of the sequence,
+    all-gathers the sequence before routing and reduce-scatters the
+    output back to its chunk (then the chunks are gathered, as the
+    port's activations are replicated over ``model``); otherwise one
+    all-reduce. ``aux`` is averaged over the data axes (its gradient
+    counted once, on model rank 0); the shared expert is added outside.
+
+    Differentiable for a loss computed once per data shard and summed
+    over shards (``distributed.collectives``): every rank gets the whole
+    gradient of ``x`` and of every param of the layer."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    mesh = ctx.mesh
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    E_loc = E // ep
+    B, S, d = x.shape
+    mg = shd.axis_group(mesh, ("model",))
+    rank = col.group_rank(mg)
+    dp_axes = tuple(a for a in ("pod", "data") if a in shd.axis_names(mesh))
+    seq_shard = S % ep == 0 and S > 1
+    T = B * S
+    C = capacity(T, cfg)                    # per-shard capacity
+
+    router = col.copy_to(p["router"], mg)
+    wg, wu, wd = (col.copy_to(p[k], mg).narrow(0, rank * E_loc, E_loc)
+                  for k in ("we_g", "we_u", "we_d"))
+    if seq_shard:
+        xl = col.all_gather_dim(col.split_to(x, 1, mg), 1, mg)
+    else:
+        xl = col.copy_to(x, mg)
+    xf = xl.reshape(T, d)
+    gate, eid, _, aux = _gates(router, xf, cfg)
+
+    rel = eid - rank * E_loc                                      # (T,K)
+    mine = (rel >= 0) & (rel < E_loc)
+    # position among the assignments to my group (others masked out)
+    oh_loc = torch.where(mine[..., None],
+                         F.one_hot(rel.clamp(0, E_loc - 1), E_loc).float(),
+                         0.0).reshape(T * K, E_loc)
+    pos = torch.cumsum(oh_loc, dim=0) - oh_loc
+    pos_in_e = (pos * oh_loc).sum(dim=-1).to(torch.int64)
+    valid = mine.reshape(T * K) & (pos_in_e < C)
+    dest = torch.where(valid, rel.reshape(T * K).clamp(0, E_loc - 1) * C
+                       + pos_in_e, torch.full_like(pos_in_e, E_loc * C))
+    y = _experts(xf, gate, dest, valid, wg, wu, wd, E_loc, C, K)
+    y = y.reshape(B, S, d)
+    if seq_shard:
+        y = col.gather_from(col.reduce_scatter_dim(y, 1, mg), 1, mg)
+    else:
+        y = col.reduce_from(y, mg)
+    if rank != 0:
+        aux = aux.detach()
+    if dp_axes:
+        dg = shd.axis_group(mesh, dp_axes)
+        aux = col.all_reduce_sum(aux, dg) / col.group_size(dg)
+    if m.n_shared:
+        y = y + _shared_expert(p, x.reshape(T, d), x.dtype).reshape(B, S, d)
+    return y, aux

@@ -69,6 +69,27 @@ def materialize(gen: torch.Generator, specs, dtype, device) -> dict:
                     is_leaf=is_spec)
 
 
+def abstractify(specs, dtype, shardings=None) -> dict:
+    """The param tree as ``meta`` tensors (shapes and dtypes, no memory),
+    the reference's ``ShapeDtypeStruct`` tree. With ``shardings`` (a tree
+    of placements, e.g. ``NamedSharding``) each leaf carries its own as
+    ``.sharding``."""
+    def leaf(s: ParamSpec, sh=None):
+        dt = DTYPES[s.dtype] if s.dtype else dtype
+        t = torch.empty(s.shape, dtype=dt, device="meta")
+        if sh is not None:
+            t.sharding = sh
+        return t
+    if shardings is None:
+        return tree_map(leaf, specs, is_leaf=is_spec)
+    return tree_map(leaf, specs, shardings, is_leaf=is_spec)
+
+
+def logical_axes(specs):
+    """Tree of logical-axis tuples matching the param tree."""
+    return tree_map(lambda s: s.logical, specs, is_leaf=is_spec)
+
+
 def param_count(specs) -> int:
     return sum(int(np.prod(s.shape))
                for s in tree_leaves(specs, is_leaf=is_spec))

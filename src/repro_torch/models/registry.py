@@ -8,7 +8,8 @@ the module describes the tree, and the training state owns the tensors.
 ``torch.Generator``; ``loss_fn(params, batch)`` is the functional form
 the step differentiates, ``forward(batch)`` the same function over
 parameters bound into the module with ``load_params``. Serving takes
-the reference's ``logits_fn``, ``init_cache``, ``decode_step`` and, for
+the reference's ``logits_fn``, ``init_cache``, ``decode_step``,
+``cache_logical`` and, for
 the encoder-decoder only, ``prefill_cache`` (None otherwise).
 """
 from __future__ import annotations
@@ -19,7 +20,8 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, lm
-from repro_torch.models.param import (ParamSpec, materialize, param_count)
+from repro_torch.models.param import (ParamSpec, abstractify, logical_axes,
+                                      materialize, param_count)
 
 
 def _declare(module: nn.Module, specs: dict, dtype) -> None:
@@ -50,6 +52,17 @@ class Model(nn.Module):
         _declare(self, self.specs, cfg.pdtype())
         self.prefill_cache = (self._prefill_cache
                               if cfg.arch_type == "audio" else None)
+
+    def abstract_params(self, shardings=None) -> dict:
+        """The param tree on the ``meta`` device (see ``abstractify``)."""
+        return abstractify(self.specs, self.cfg.pdtype(), shardings)
+
+    def logical_axes(self) -> dict:
+        return logical_axes(self.specs)
+
+    def cache_logical(self):
+        """Logical-axis tree matching ``init_cache``'s (for sharding)."""
+        return self._impl.cache_logical(self.cfg)
 
     def init(self, seed: int = 0, device=None) -> dict:
         """Initialize a param tree on ``device`` (CUDA unless the CPU is
