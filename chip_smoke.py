@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only families    # the build and phase I
     python3 chip_smoke.py --only serve       # the build and phase J
     python3 chip_smoke.py --only dist        # the build and phase K
+    python3 chip_smoke.py --only roof        # the build and phase L
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -157,6 +158,26 @@ K. the distributed layer (``phase_dist``) on a ``torch.distributed``
    ``decode_step``, bitwise, logits and cache. ``[dist]`` lines: step
    ms, launches, K2's blocks and ms; ``--only dist`` runs the build and
    this phase alone;
+L. the analysis against the card (``phase_roof``): its fake runs (L3's
+   composed gpt2-l steps, L4's memory estimate, L5's production
+   combination; ~35 CPU s) run in a child process (``--roof-cpu``)
+   started after the build, beside phases 2-K. L1 a 1 GiB device copy
+   against ``HBM_BW``; three ``lowdiff_sharded`` steps of full gpt2-l on
+   an NCCL group of one rank (their median and peak device memory), then
+   19 top-k differentials of seeded gradients applied by
+   ``replay_device`` from the card (the apply loop without the upload);
+   L2 ``replay_roofline`` of phase 3's chain against that loop and phase
+   3's device recovery; L3 the composed dense and ``lowdiff_sharded``
+   steps' terms and bound against phase 4's, phase 3's, phase K's and
+   this phase's medians; L4 the dry run's ``peak_bytes_est`` against the
+   measured peak, within ``ROOF_TOL`` (25%); L5 ``lower_combo`` of
+   qwen2-1.5b x train_4k on a fake group of 256 ranks. ``[roof]`` lines
+   with the card's name and power limit. ``--only roof`` runs the build
+   and this phase alone (with 3 dense steps of its own for L3). Rehearse
+   on the CPU: call ``_roof_cpu(path)``, then ``phase_roof`` with a
+   reduced gpt2-l, ``torch.device("cpu")``, ``backend="gloo"``, a finished
+   child, the ``torch.cuda`` calls and ``fail`` stubbed: only L4 and the
+   launch check of the dense steps fail (~40 s);
 5. print the ``kernels`` JSON line, the card's name and power limit,
    and the result line.
 
@@ -165,6 +186,7 @@ Exits non-zero without a CUDA device, and when run outside the repo.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import math
 import os
@@ -3029,7 +3051,7 @@ def _dist_serve(model, params, psh, mesh, dev, B=8, P=16, gen=8):
         f"{[round(x, 2) for x in ums]}")
 
 
-def phase_dist(dev, backend: str = "nccl"):
+def phase_dist(dev, backend: str = "nccl", stats: dict = None):
     """Phase K: ``repro_torch.distributed`` on full-width, full-depth
     gpt2-l (36 L, 1,072,469,760 params, f32; batch 4 x seq 64) over a
     process group of one rank (NCCL on the card; ``backend`` exists for
@@ -3041,7 +3063,8 @@ def phase_dist(dev, backend: str = "nccl"):
     unsharded run's launches are the comparison's and put back). K2:
     ``_dist_k2`` on K1's last gradient. K3: ``_dist_serve`` from K1's
     trained params. Returns the path's K1 (K1's steps and K2) and K3
-    launches."""
+    launches; ``stats`` (a dict) receives K1's sharded step ms and the
+    peak device memory."""
     import tempfile
     import torch
     import torch.distributed as dist
@@ -3127,6 +3150,8 @@ def phase_dist(dev, backend: str = "nccl"):
             del scg, ucg, got, want
         if path["topk_select"] <= 0 or path["adam_tile_update"] <= 0:
             fail(f"K1: the sharded step did not launch K1 and K3 ({path})")
+        if stats is not None:
+            stats.update(sms=sms, peak=torch.cuda.max_memory_allocated())
         log(f"[dist] K1 {steps} lowdiff_sharded steps of full gpt2-l "
             f"({model.n_params()} params, state "
             f"{sum(t.numel() * t.element_size() for t in _state_leaves(sstate))}"
@@ -3152,6 +3177,292 @@ def phase_dist(dev, backend: str = "nccl"):
     torch.cuda.empty_cache()
     log(f"[time] phase K: {time.perf_counter() - t_phase:.1f} s")
     return path
+
+
+# ---------------------------------------------------------------- phase L
+ROOF_TOL = 0.25     # L4: |dry-run estimate - measured peak| / measured peak
+ROOF_BATCH, ROOF_SEQ = 4, 64          # the script's gpt2-l shape
+ROOF_DIFFS = 19                       # phase 3's chain
+
+
+def _roof_cpu(out: str) -> None:
+    """Phase L's CPU part (``--roof-cpu OUT``, run as a child process
+    beside the card's phases): fake runs, no card. L3: the roofline of
+    full gpt2-l's ``dense`` and ``lowdiff_sharded`` steps at 4 x 64 on
+    the (1, 1) mesh (``analysis.roofline.local_roofline``); L4: the dry
+    run's memory estimate of that ``lowdiff_sharded`` step
+    (``launch.dryrun.run_fake``); L5: ``lower_combo`` of qwen2-1.5b x
+    train_4k on the (16, 16) mesh. Writes JSON to ``out``."""
+    import torch
+    from repro_torch.analysis.roofline import local_roofline
+    from repro_torch.analysis.segments import local_blocks
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import step_builder as sb
+    from repro_torch.launch.dryrun import lower_combo, run_fake
+    from repro_torch.launch.mesh import fake_world, make_local_mesh
+    from repro_torch.models.registry import build_model
+    torch.set_num_threads(1)
+    cfg = get_config("gpt2-l")
+    shape = ShapeConfig("smoke", ROOF_SEQ, ROOF_BATCH, "train")
+    res, secs = {}, {}
+    t0 = time.perf_counter()
+    for mode in ("dense", "lowdiff_sharded"):
+        res[mode] = local_roofline(cfg, shape, train_mode=mode)
+    secs["L3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    with fake_world(1), shd.use_mesh(make_local_mesh(1, 1),
+                                     cfg.rules("train")):
+        step, ast, ab = sb.make_sharded_train_step(model, shape,
+                                                   mode="lowdiff_sharded")
+        est = run_fake(step, (local_blocks(ast), ab))
+    res["estimate"] = {k: est[k] for k in ("memory", "cost", "collectives",
+                                           "compile_s")}
+    secs["L4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["combo"] = lower_combo("qwen2-1.5b", "train_4k")
+    secs["L5"] = time.perf_counter() - t0
+    res["seconds"] = secs
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def _start_roof_cpu():
+    """Starts ``_roof_cpu`` in a child process (its fake runs take tens of
+    CPU seconds, spent while the card's phases run); returns (process,
+    its output path, its log path)."""
+    import tempfile
+    d = tempfile.mkdtemp(prefix="chip_smoke_roof_")
+    out, logp = os.path.join(d, "roof.json"), os.path.join(d, "roof.log")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    with open(logp, "w") as lf:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--roof-cpu", out], stdout=lf,
+                                stderr=subprocess.STDOUT, env=env, cwd=HERE)
+    return proc, out, logp
+
+
+def _stop_child(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _roof_cpu_result(child) -> dict:
+    proc, out, logp = child
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail("phase L: the dry-run child did not finish in 900 s")
+    if rc != 0:
+        with open(logp) as f:
+            tail = f.read()[-3000:]
+        fail(f"phase L: the dry-run child exited {rc}:\n{tail}")
+    with open(out) as f:
+        res = json.load(f)
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    return res
+
+
+def _roof_sharded_steps(cfg, dev, steps: int = 3, backend: str = "nccl"):
+    """``steps`` ``lowdiff_sharded`` steps of full gpt2-l (4 x 64) on the
+    live (1, 1) mesh of an NCCL group of one rank (phase K's K1 without
+    its comparisons). Returns (step ms, the steps' peak device memory
+    with the arguments counted and other residents not, the arguments'
+    bytes, the final state)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.steps import init_state
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import step_builder as sb
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_roof_")
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1)
+        with shd.use_mesh(mesh, cfg.rules("train")):
+            step, _, _ = sb.make_sharded_train_step(
+                model, ShapeConfig("train", ROOF_SEQ, ROOF_BATCH, "train"),
+                mode="lowdiff_sharded", rho=0.01)
+            st_sh = sb.state_shardings(model, mode="lowdiff_sharded",
+                                       error_feedback=False)
+        state = sb.shard_tree(init_state(model, 0, mode="lowdiff_plus",
+                                         device=dev), st_sh)
+        stream = TokenStream(cfg, ROOF_SEQ, ROOF_BATCH, seed=0, device=dev)
+        batches = [next(stream) for _ in range(steps)]
+        col.all_reduce_(torch.ones(1024, device=dev),    # communicator
+                        shd.axis_group(mesh, ("data", "model")))
+        args = sum(t.numel() * t.element_size()
+                   for t in _state_leaves(state) + [state["step"]]) + sum(
+            t.numel() * t.element_size() for t in batches[0].values())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, metrics, cg = step(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(float(metrics["loss"])):
+                fail(f"phase L: non-finite sharded loss {metrics['loss']}")
+            del cg, metrics
+        peak = torch.cuda.max_memory_allocated(dev) - base + args
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ms, peak, args, state
+
+
+def _roof_replay(state, dev, n: int = ROOF_DIFFS):
+    """``n`` top-k differentials (rho 0.01) of seeded random gradients,
+    made on the card (K1; a comparison's launches, not a path's), then
+    ``recovery.replay_device`` of them on ``state`` with the payloads
+    already on the card: the apply loop apart from any upload. Returns
+    (host ms of the loop, payload bytes per differential, state bytes
+    read and written per differential: params and both moments)."""
+    import torch
+    from repro_torch import tree_leaves, tree_map
+    from repro_torch.compression.sparse import compress_tree, tree_nbytes
+    from repro_torch.core import recovery as rec
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    diffs = []
+    for i in range(n):
+        grads = tree_map(lambda t: torch.randn(
+            t.shape, generator=gen, device=dev, dtype=torch.float32) * 1e-3,
+            state["params"])
+        diffs.append((i + 1, compress_tree(grads, 0.01)))
+        del grads
+    payload = tree_nbytes(diffs[0][1])
+    opt = state["opt"]
+    state_b = sum(t.numel() * t.element_size() for t in
+                  tree_leaves(state["params"]) + tree_leaves(opt.mu)
+                  + tree_leaves(opt.nu))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt2, applied = rec.replay_device(state["params"], opt, diffs,
+                                              device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if applied != n:
+        fail(f"phase L: replayed {applied} of {n} differentials")
+    del params, opt2, diffs
+    return ms, payload, state_b
+
+
+def phase_roof(cfg, dev, smi: str, child, prior: dict = None,
+               backend: str = "nccl"):
+    """Phase L: ``repro_torch.analysis`` against the card. ``child`` is
+    the ``_start_roof_cpu`` process (L3-L5's fake runs); ``prior`` holds
+    what phases 3, 4 and K measured (the whole script), or None
+    (``--only roof``: 3 dense steps are run here for L3, and the rest
+    comes from this phase's own runs).
+
+    L1 ``measured_copy_bandwidth`` on the card against HBM_BW. L2
+    ``replay_roofline`` of phase 3's chain (19 differentials of full
+    gpt2-l) against the apply loop of 19 differentials timed here and
+    against phase 3's whole device recovery. L3 the composed dense and
+    lowdiff_sharded steps' terms, their bound and its share of the
+    measured median steps (phase 4's dense, this phase's sharded steps,
+    phase 3's lowdiff and phase K's sharded). L4 the dry run's
+    ``peak_bytes_est`` of the lowdiff_sharded step against the peak of
+    this phase's three sharded steps, within ROOF_TOL (phase K's peak
+    printed beside it). L5 ``lower_combo`` of qwen2-1.5b x train_4k on
+    the (16, 16) mesh of a fake group of 256 ranks. ``backend`` exists
+    for rehearsals on the CPU."""
+    import torch
+    from repro_torch.analysis.roofline import (measured_copy_bandwidth,
+                                               replay_roofline)
+    from repro_torch.launch.mesh import HBM_BW
+    t_phase = time.perf_counter()
+    card = f"({smi})"
+    bw = measured_copy_bandwidth(1 << 30, iters=10, device=dev)
+    log(f"[roof] L1 device-to-device copy of 1 GiB: {bw / 1e12:.4f} TB/s "
+        f"(2x the bytes copied), {100 * bw / HBM_BW:.2f}% of HBM_BW "
+        f"{HBM_BW / 1e12:.2f} TB/s {card}")
+    if prior is None:
+        _, dense_ms = phase_dense(cfg, dev, tag="[roof dense]")
+        prior = {"dense_ms": dense_ms}
+        log("[roof] --only roof: phase 4's dense steps run above; phase "
+            "3's and phase K's numbers are not available")
+    sms, peak, args, state = _roof_sharded_steps(cfg, dev, backend=backend)
+    loop_ms, payload, state_b = _roof_replay(state, dev)
+    del state
+    torch.cuda.empty_cache()
+    rr = replay_roofline(state_b, payload, ROOF_DIFFS, device=dev)
+    bound_ms = rr["min_seconds"] * 1e3
+    p3 = prior.get("p3")
+    vs3 = (f"; phase 3's device recovery {p3['rec_ms']:.1f} ms "
+           f"(upload of the full included): "
+           f"{100 * bound_ms / p3['rec_ms']:.2f}%" if p3 else
+           "; phase 3 not run")
+    log(f"[roof] L2 replay_roofline: {ROOF_DIFFS} x (2 x {state_b} + "
+        f"{payload}) B = {rr['traffic_bytes']} B at "
+        f"{rr['bandwidth'] / 1e12:.2f} TB/s: {bound_ms:.2f} ms; the apply "
+        f"loop of {ROOF_DIFFS} differentials already on the card "
+        f"{loop_ms:.2f} ms: {100 * bound_ms / loop_ms:.2f}%{vs3} {card}")
+    res = _roof_cpu_result(child)
+    med = lambda xs: statistics.median(xs[1:]) if len(xs) > 1 else xs[0]  # noqa: E731
+    for mode in ("dense", "lowdiff_sharded"):
+        r = res[mode]
+        bound = max(r["compute_s"], r["memory_s"], r["collective_s"])
+        meas = {"dense": [("phase 4 dense", prior["dense_ms"])],
+                "lowdiff_sharded": [("phase L sharded", sms)]}[mode]
+        if mode == "lowdiff_sharded" and p3:
+            meas.append(("phase 3 lowdiff", p3["step_ms"]))
+        if mode == "lowdiff_sharded" and prior.get("k"):
+            meas.append(("phase K sharded", prior["k"]["sms"]))
+        shares = ", ".join(f"{n} median {med(x):.2f} ms: "
+                           f"{100 * bound * 1e3 / med(x):.2f}%"
+                           for n, x in meas)
+        log(f"[roof] L3 {mode} gpt2-l {ROOF_BATCH}x{ROOF_SEQ} (1,1): flops "
+            f"{r['flops_per_chip']:.6g}, bytes {r['bytes_per_chip']:.6g} "
+            f"(+ collectives {r['coll_bytes_per_chip']:.6g}, local copies "
+            f"on one card), compute_s {r['compute_s']}, memory_s "
+            f"{r['memory_s']}, collective_s {r['collective_s']}, dominant "
+            f"{r['dominant']} (peak {r['peak_flops']:.4g} FLOP/s), "
+            f"useful_flops_ratio {r['useful_flops_ratio']}; bound "
+            f"{bound * 1e3:.3f} ms ({r['dominant']}); {shares} {card}")
+    est = res["estimate"]["memory"]["peak_bytes_est"]
+    err = abs(est - peak) / peak
+    k = prior.get("k")
+    log(f"[roof] L4 dry-run peak_bytes_est of the lowdiff_sharded step "
+        f"{est} B (arguments {res['estimate']['memory']['argument_bytes']}"
+        f", outputs {res['estimate']['memory']['output_bytes']}, temps "
+        f"{res['estimate']['memory']['temp_bytes']}; fake run "
+        f"{res['estimate']['compile_s']} CPU s) against {peak} B measured "
+        f"over {len(sms)} sharded steps (arguments {args} B): "
+        f"{100 * err:.2f}% apart, tolerance {100 * ROOF_TOL:.0f}%"
+        + (f"; phase K's peak {k['peak']} B also held the unsharded "
+           f"state and step" if k else "") + f" {card}")
+    if not err <= ROOF_TOL:
+        fail(f"L4: the dry run's estimate {est} B is {100 * err:.1f}% from "
+             f"the measured peak {peak} B (tolerance {ROOF_TOL})")
+    c = res["combo"]
+    if c.get("status") != "ok" or c.get("n_devices") != 256:
+        fail(f"L5: lower_combo qwen2-1.5b x train_4k: {c}")
+    log(f"[roof] L5 lower_combo qwen2-1.5b train_4k 16x16 on torch "
+        f"{torch.__version__}: {c['step_kind']}, lower_s {c['lower_s']}, "
+        f"compile_s {c['compile_s']} (CPU s), peak_bytes_est "
+        f"{c['memory']['peak_bytes_est']} B, flops {c['cost']['flops']:.6g}, "
+        f"collectives {c['collectives']} {card}")
+    log(f"[roof] child CPU s {res['seconds']}")
+    log(f"[time] phase L: {time.perf_counter() - t_phase:.1f} s")
+    return {}
 
 
 # ---------------------------------------------------------------- profile
@@ -3237,11 +3548,13 @@ KERNELS = [
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("all", "kernels", "families",
-                                       "serve", "hymba-f32", "dist"),
+                                       "serve", "hymba-f32", "dist", "roof"),
                     default="all", help="kernels: stop after phase A; "
-                    "families / serve / dist: the build and phase I / J / K "
-                    "alone; hymba-f32: the build and J2's Hymba with f32 "
-                    "compute")
+                    "families / serve / dist / roof: the build and phase "
+                    "I / J / K / L alone; hymba-f32: the build and J2's "
+                    "Hymba with f32 compute")
+    ap.add_argument("--roof-cpu", default=None, metavar="OUT",
+                    help=argparse.SUPPRESS)   # phase L's child process
     ap.add_argument("--profile", action="store_true",
                     help="also profile warm lowdiff and dense steps")
     ap.add_argument("--ckpt-dir", default=os.path.join(HERE, "build",
@@ -3255,6 +3568,9 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke test needs "
              "an NVIDIA GPU")
     sys.path.insert(0, os.path.join(HERE, "src"))
+    if args.roof_cpu:
+        _roof_cpu(args.roof_cpu)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3270,9 +3586,15 @@ def main() -> int:
     cfg = get_config("gpt2-l")
 
     phase_build()
-    if args.only in ("families", "serve", "hymba-f32", "dist"):
+    child = None
+    if args.only in ("all", "roof"):
+        child = _start_roof_cpu()
+        atexit.register(_stop_child, child[0])
+    if args.only in ("families", "serve", "hymba-f32", "dist", "roof"):
         if args.only == "dist":
             got = phase_dist(dev)
+        elif args.only == "roof":
+            got = phase_roof(cfg, dev, smi, child)
         elif args.only == "hymba-f32":
             tag, arch, cut, B, P, gen = next(
                 m for m in SERVE_MODELS if m[1] == "hymba-1.5b")
@@ -3300,7 +3622,8 @@ def main() -> int:
     launches.update({k: res[k]["parity_launches"]
                      for k in ("span_pack", "quant_span_decode")})
     if args.only == "all":
-        got, diff_bytes = phase_main(cfg, dev, args.ckpt_dir)
+        p3 = {}
+        got, diff_bytes = phase_main(cfg, dev, args.ckpt_dir, stats=p3)
         launches.update({k: v for k, v in got.items()
                          if k in PATH_KERNELS["topk"]})
         got, dense_ms = phase_dense(cfg, dev)
@@ -3351,10 +3674,15 @@ def main() -> int:
         for k in PATH_KERNELS["topk"]:
             launches[k] += got[k]
         log(f"[time] + phase J: {time.perf_counter() - t_all:.1f} s")
-        got = phase_dist(dev)
+        kstats = {}
+        got = phase_dist(dev, stats=kstats)
         for k, v in got.items():
             launches[k] += v
         log(f"[time] + phase K: {time.perf_counter() - t_all:.1f} s")
+        # phase L's own runs are comparisons, not a path: no launch adds
+        phase_roof(cfg, dev, smi, child, prior={
+            "p3": p3, "dense_ms": dense_ms, "k": kstats})
+        log(f"[time] + phase L: {time.perf_counter() - t_all:.1f} s")
     if args.profile:
         phase_profile(cfg, dev)
     kernels = []

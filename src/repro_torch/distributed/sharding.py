@@ -91,7 +91,20 @@ def mesh_shape(mesh) -> Dict[str, int]:
     """Axis name -> size, in the mesh's order."""
     if isinstance(mesh, AbstractMesh):
         return dict(mesh.shape)
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    if "_repro_shape" not in mesh.__dict__:
+        with _host_only():
+            mesh.__dict__["_repro_shape"] = dict(zip(mesh.mesh_dim_names,
+                                                     mesh.mesh.shape))
+    return dict(mesh.__dict__["_repro_shape"])
+
+
+def _host_only():
+    """Suspends the active dispatch modes: the mesh's rank table is host
+    bookkeeping (newer DeviceMeshes build ``mesh.mesh`` with a tensor op
+    on each read), which a ``FakeTensorMode`` (the dry run) must not
+    intercept."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    return _disable_current_modes()
 
 
 def coordinate(mesh) -> Dict[str, int]:
@@ -110,11 +123,12 @@ def axis_group(mesh, axes: Sequence[str]):
     axes = tuple(a for a in names if a in axes)
     cache = mesh.__dict__.setdefault("_repro_groups", {})
     if axes not in cache:
-        ranks = mesh.mesh
-        keep = [names.index(a) for a in axes]
-        rest = [i for i in range(len(names)) if i not in keep]
-        n = math.prod(ranks.shape[i] for i in keep)
-        lists = ranks.permute(rest + keep).reshape(-1, n).tolist()
+        with _host_only():
+            ranks = mesh.mesh
+            keep = [names.index(a) for a in axes]
+            rest = [i for i in range(len(names)) if i not in keep]
+            n = math.prod(ranks.shape[i] for i in keep)
+            lists = ranks.permute(rest + keep).reshape(-1, n).tolist()
         if len(lists) == 1:
             cache[axes] = dist.group.WORLD
         else:

@@ -97,11 +97,14 @@ def adam_hyper_traced(lr, b1, b2, eps, count: torch.Tensor) -> torch.Tensor:
     doubles, as ``adam_update``'s scalar promotion rounds them."""
     c1, c2 = bias_corrections(b1, b2, count)
     key = (float(lr), float(b1), float(b2), float(eps), str(count.device))
-    const = _CONSTS.get(key)
+    # a dry run's fake tensors neither read nor fill the cache
+    cached = type(count) is torch.Tensor
+    const = _CONSTS.get(key) if cached else None
     if const is None:   # one host->device copy per hyperparameter set
-        const = _CONSTS[key] = torch.tensor(
-            [lr, b1, b2, eps, 1.0 - b1, 1.0 - b2], dtype=torch.float32,
-            device=count.device)
+        const = torch.tensor([lr, b1, b2, eps, 1.0 - b1, 1.0 - b2],
+                             dtype=torch.float32, device=count.device)
+        if cached:
+            _CONSTS[key] = const
     return torch.cat([const[:4], c1.reshape(1), c2.reshape(1),
                       const[4:]]).reshape(1, 8)
 

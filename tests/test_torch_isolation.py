@@ -29,6 +29,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert "repro_torch.launch.train" in mods
     assert "repro_torch.launch.serve" in mods
     assert "repro_torch.kernels.build" in mods
+    for m in ("launch.dryrun", "analysis.segments", "analysis.roofline",
+              "analysis.hlo_stats", "analysis.report"):
+        assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys, json\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
