@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only serve       # the build and phase J
     python3 chip_smoke.py --only dist        # the build and phase K
     python3 chip_smoke.py --only roof        # the build and phase L
+    python3 chip_smoke.py --only trace       # the build and phase T
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -178,6 +179,17 @@ L. the analysis against the card (``phase_roof``): its fake runs (L3's
    reduced gpt2-l, ``torch.device("cpu")``, ``backend="gloo"``, a finished
    child, the ``torch.cuda`` calls and ``fail`` stubbed: only L4 and the
    launch check of the dense steps fail (~40 s);
+T. the tracer on the card, alone (``--only trace``, ``phase_trace``):
+   the host cost of an empty span (off, on, on with the card's clock);
+   then the benchmark's ``gpt2l.lowdiff.topk`` and ``gpt2l.dense``,
+   each built by ``chipbench`` from its seed, in 8 blocks of 20 steps
+   with tracing off, on, on, off, ...: each block's step time, the
+   benchmark's readers of the step's spans over each traced block, each
+   phase inside its step on the card, and the card-to-host clock
+   mapping against a second anchor after each traced block (within
+   0.5 ms); then one profiled step, whose ``topk_apply_kernel`` (or
+   ``adam_kernel``) launches must each lie under a ``step.apply``
+   ``gpu_user_annotation``;
 5. print the ``kernels`` JSON line, the card's name and power limit,
    and the result line.
 
@@ -3514,6 +3526,222 @@ def phase_profile(cfg, dev, steps: int = 2):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase T
+#: the benchmark's gpt2-l cells that phase T runs as the benchmark builds
+#: them (``chipbench``), and its seed
+TRACE_CELLS = ("gpt2l.lowdiff.topk", "gpt2l.dense")
+TRACE_SEED = 2718281828
+#: timed blocks of 20 steps, tracing off, on, on, off, ...
+TRACE_BLOCKS = 8
+TRACE_BLOCK_STEPS = 20
+#: the most the tracer's card-to-host clock mapping may be off
+TRACE_CLOCK_TOL_S = 0.5e-3
+#: the benchmark's readers of the step's spans
+TRACE_READERS = ("dispatch_ms.train", "fwd_bwd_ms.train",
+                 "compress_ms.train", "apply_ms.train", "full_d2h_s.train")
+
+
+def _span_cost(n: int = 20000) -> dict:
+    """Host us per empty ``trace_span`` over ``n`` of them on an idle
+    card: tracing off, on (host clock only), on with ``device=True``."""
+    import torch
+    from repro_torch.obs.trace import TRACER, trace_span
+    out = {}
+    for key, on, device in (("off", False, True), ("host", True, False),
+                            ("device", True, True)):
+        TRACER.clear()
+        if on:
+            TRACER.enable()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with trace_span("smoke.cost", device=device):
+                pass
+        out[key] = (time.perf_counter() - t0) / n * 1e6
+        TRACER.events()
+        TRACER.disable()
+    TRACER.clear()
+    return out
+
+
+def _trace_cell(name: str, dev, problems: list) -> None:
+    """One benchmark cell: blocks of steps with tracing off and on in
+    turn (the step time of each), the readers over each traced block,
+    each device span's phases inside its step on the card, the clock
+    mapping against a fresh anchor after each traced block, then one
+    profiled step whose apply kernels must each lie under a ``step.apply``
+    ``gpu_user_annotation``."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from chipbench import harness
+    from chipbench.drivers.train import Trainer
+    from repro_torch.obs.trace import TRACER
+    cell = harness.load_cell(name)
+    t = cell.traffic
+    TRACER.clear()
+    t_set = time.perf_counter()
+    tr = Trainer(cell, dev, TRACE_SEED)
+    if tr.lowdiff:
+        while tr.strat.full_saves < t["warm_fulls"]:
+            tr.one()
+    else:
+        for _ in range(t["warm_steps"]):
+            tr.one()
+    log(f"[trace] {name}: set-up and warm-up {time.perf_counter() - t_set:.1f}"
+        f" s")
+    readers = {m: harness._load(os.path.join(HERE, "chipbench",
+                                             "layer_metrics", f"{m}.py"),
+                                "smoke_" + m.replace(".", "_"))
+               for m in TRACE_READERS}
+    ms = {"off": [], "on": []}
+    t_anchor = None
+    n = TRACE_BLOCK_STEPS
+    for i in range(TRACE_BLOCKS):
+        on = i % 4 in (1, 2)
+        if on:
+            TRACER.enable()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.one()
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        TRACER.disable()
+        step_ms = (t1 - t0) / n * 1e3
+        ms["on" if on else "off"].append(step_ms)
+        if not on:
+            log(f"[trace] {name}: block {i} off: {step_ms:.3f} ms/step")
+            continue
+        spans = [(e[0], e[4], e[5], e[6] or {}) for e in TRACER.events()
+                 if t0 <= e[5] <= t1]
+        t_anchor = t_anchor or t0
+        err = TRACER.clock_error()
+        run = harness.Run(kind="train", e2e={"step_ms": step_ms},
+                          attempted=n, failed=0, memory_peak_bytes=0,
+                          numbers={}, traffic=t, units=n, spans=spans)
+        got = {m: r.read(run) for m, r in readers.items()}
+        parts = sum(got[m] or 0.0 for m in ("fwd_bwd_ms.train",
+                                            "compress_ms.train",
+                                            "apply_ms.train"))
+        log(f"[trace] {name}: block {i} on: {step_ms:.3f} ms/step; "
+            + ", ".join(f"{m} {v!r}" for m, v in got.items())
+            + f"; phases {parts:.3f} ms, remainder {step_ms - parts:.3f} ms"
+            f"; clock error {err * 1e3:+.4f} ms at "
+            f"{time.perf_counter() - t_anchor:.1f} s after the anchor")
+        if abs(err) > TRACE_CLOCK_TOL_S:
+            problems.append(f"{name}: clock error {err * 1e3:.4f} ms")
+        if parts > step_ms:
+            problems.append(f"{name}: phases {parts:.3f} ms over the "
+                            f"step's {step_ms:.3f} ms")
+        lag = {}
+        for s in spans:
+            if "dev_t0" in s[3]:
+                lag.setdefault(s[0], []).append(
+                    ((s[3]["dev_t0"] - s[1]) * 1e3,
+                     (s[3]["dev_t1"] - s[2]) * 1e3))
+        log(f"[trace] {name}: block {i} card behind host (median ms at "
+            "entry / exit): " + ", ".join(
+                f"{k} {statistics.median(a for a, _ in v):.3f} / "
+                f"{statistics.median(b for _, b in v):.3f}"
+                for k, v in sorted(lag.items())))
+        steps = sorted((s for s in spans if s[0] == "step"),
+                       key=lambda s: s[1])
+        host_gap = [(b[1] - a[2]) * 1e3 for a, b in zip(steps, steps[1:])]
+        card_gap = [(b[3]["dev_t0"] - a[3]["dev_t1"]) * 1e3
+                    for a, b in zip(steps, steps[1:])]
+        hand = [(s[2] - s[1]) * 1e3 for s in spans
+                if s[0] == "lowdiff.handoff"]
+        d2h = [(round(s[2] - s[1], 4), s[3].get("wait_ms")) for s in spans
+               if s[0] == "snapshot.d2h" and s[3].get("kind") == "full"]
+        if host_gap:
+            log(f"[trace] {name}: block {i} between steps (ms, median / "
+                f"max): host {statistics.median(host_gap):.3f} / "
+                f"{max(host_gap):.3f}, card {statistics.median(card_gap):.3f}"
+                f" / {max(card_gap):.3f} (sum {sum(card_gap):.3f})"
+                + (f"; lowdiff.handoff host {statistics.median(hand):.3f} / "
+                   f"{max(hand):.3f}" if hand else "")
+                + (f"; full snapshot.d2h (s, wait_ms) {d2h}" if d2h else ""))
+        if len(steps) != n:
+            problems.append(f"{name}: {len(steps)} step spans of {n}")
+        for s in spans:
+            a = s[3]
+            if s[0].startswith("step.") and not any(
+                    st[3]["dev_t0"] <= a["dev_t0"] <= a["dev_t1"]
+                    <= st[3]["dev_t1"] for st in steps):
+                problems.append(f"{name}: {s[0]} outside its step on the "
+                                f"card")
+                break
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"[trace] {name}: step ms off {ms['off']}, on {ms['on']}; medians "
+        f"off {med['off']:.3f}, on {med['on']:.3f} "
+        f"({(med['on'] / med['off'] - 1) * 100:+.3f}%)")
+
+    TRACER.enable()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.one()
+        torch.cuda.synchronize(dev)
+    TRACER.disable()
+    TRACER.clear()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+    finally:
+        os.remove(path)
+    notes = {}
+    for e in events:
+        if e.get("cat") in ("user_annotation", "gpu_user_annotation"):
+            key = (e["cat"], e["name"])
+            notes.setdefault(key, []).append(e)
+    log(f"[trace] {name}: profiled step's annotations "
+        + ", ".join(f"{c} {n_} x{len(v)}"
+                    for (c, n_), v in sorted(notes.items())))
+    kname = "topk_apply_kernel" if tr.lowdiff else "adam_kernel"
+    applies = notes.get(("gpu_user_annotation", "step.apply"), [])
+    kerns = [e for e in events
+             if e.get("cat") == "kernel" and kname in e["name"]]
+    outside = [k for k in kerns if not any(
+        a["ts"] - 0.5 <= k["ts"] and k["ts"] + k["dur"]
+        <= a["ts"] + a["dur"] + 0.5 for a in applies)]
+    log(f"[trace] {name}: {len(kerns)} {kname} launches, "
+        f"{len(kerns) - len(outside)} under a step.apply "
+        f"gpu_user_annotation")
+    if not kerns or outside:
+        problems.append(f"{name}: {len(outside)} of {len(kerns)} {kname} "
+                        f"outside step.apply")
+    tr.close()
+    _release_pinned()
+
+
+def phase_trace(dev) -> dict:
+    """T. the tracer on the card (``--only trace``): T1 the host cost of
+    an empty span, tracing off, on, and on with the card's clock; T2 the
+    benchmark's gpt2-l cells (``TRACE_CELLS``), each built as the
+    benchmark builds it, through ``_trace_cell``: the step time with
+    tracing off against on, the five readers of the step's spans, the
+    clock mapping within ``TRACE_CLOCK_TOL_S`` of a second anchor, and a
+    profiled step with every apply kernel under ``step.apply``."""
+    t_phase = time.perf_counter()
+    cost = _span_cost()
+    log("[trace] us per empty span: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in cost.items()))
+    problems: list = []
+    for name in TRACE_CELLS:
+        _trace_cell(name, dev, problems)
+    log(f"[time] phase T: {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        fail("phase T: " + "; ".join(problems))
+    return {}
+
+
 # ---------------------------------------------------------------- main
 KERNELS = [
     ("topk_select", "src/repro_torch/kernels/csrc/topk.cu",
@@ -3548,11 +3776,12 @@ KERNELS = [
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("all", "kernels", "families",
-                                       "serve", "hymba-f32", "dist", "roof"),
+                                       "serve", "hymba-f32", "dist", "roof",
+                                       "trace"),
                     default="all", help="kernels: stop after phase A; "
-                    "families / serve / dist / roof: the build and phase "
-                    "I / J / K / L alone; hymba-f32: the build and J2's "
-                    "Hymba with f32 compute")
+                    "families / serve / dist / roof / trace: the build and "
+                    "phase I / J / K / L / T alone; hymba-f32: the build "
+                    "and J2's Hymba with f32 compute")
     ap.add_argument("--roof-cpu", default=None, metavar="OUT",
                     help=argparse.SUPPRESS)   # phase L's child process
     ap.add_argument("--profile", action="store_true",
@@ -3590,9 +3819,12 @@ def main() -> int:
     if args.only in ("all", "roof"):
         child = _start_roof_cpu()
         atexit.register(_stop_child, child[0])
-    if args.only in ("families", "serve", "hymba-f32", "dist", "roof"):
+    if args.only in ("families", "serve", "hymba-f32", "dist", "roof",
+                     "trace"):
         if args.only == "dist":
             got = phase_dist(dev)
+        elif args.only == "trace":
+            got = phase_trace(dev)
         elif args.only == "roof":
             got = phase_roof(cfg, dev, smi, child)
         elif args.only == "hymba-f32":

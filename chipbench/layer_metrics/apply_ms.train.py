@@ -1,0 +1,11 @@
+"""``optim/`` and ``kernels/``: the ms of card time a window step spent
+in its ``step.apply`` span, the per-leaf decode-and-apply (K4) or dense
+Adam (K3) launches (``dev_t1 - dev_t0``), over the window's steps."""
+
+
+def read(run):
+    spans = [a for name, _, _, a in run.spans if name == "step.apply"]
+    if (run.kind != "train" or not spans
+            or any("dev_t1" not in a for a in spans)):
+        return None
+    return sum(a["dev_t1"] - a["dev_t0"] for a in spans) / run.units * 1e3

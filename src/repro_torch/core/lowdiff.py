@@ -117,7 +117,7 @@ class LowDiff:
     def _handle(self, step: int, pending):
         """Step ①: offload to host memory (frees the device buffers)."""
         with trace_span("ckpt.offload", "persist", step=step):
-            host_cg = host_copy(pending)
+            host_cg = host_copy(pending, kind="diff")
         del pending
         with self._buffer_lock:
             self._buffer.append((step, host_cg))
@@ -175,26 +175,27 @@ class LowDiff:
         t0 = time.perf_counter()
         self._step_counter += 1
         step = self._step_counter   # host-side: never waits on the device
-        self._start_consumer()
-        # hand-off: the payload plus an event marking the end of step t
-        blocked = self.queue.put(step, PendingSnapshot(cg))
-        TIMELINE.charge("queue_backpressure", blocked)
-        if step % self.full_interval == 0:
-            # async snapshot: only the end-of-step event is recorded
-            # here; copy, wait and write run on the persist thread,
-            # overlapped with the next training steps
-            pending = self._arena.snapshot_async(
-                state, shards=max(1, self.snapshot_shards))
-            self._pending.append(
-                self._persist_pool.submit(self._persist_full, step, pending))
-            self.full_saves += 1
+        with trace_span("lowdiff.handoff", "step", device=True):
+            self._start_consumer()
+            # hand-off: the payload plus an event marking the end of step t
+            blocked = self.queue.put(step, PendingSnapshot(cg))
+            TIMELINE.charge("queue_backpressure", blocked)
+            if step % self.full_interval == 0:
+                # async snapshot: only the end-of-step event is recorded
+                # here; copy, wait and write run on the persist thread,
+                # overlapped with the next training steps
+                pending = self._arena.snapshot_async(
+                    state, shards=max(1, self.snapshot_shards))
+                self._pending.append(self._persist_pool.submit(
+                    self._persist_full, step, pending))
+                self.full_saves += 1
         self.ckpt_time += time.perf_counter() - t0
         return state, metrics
 
     def _persist_full(self, step: int, pending):
         try:
             with trace_span("persist.full", "persist", step=step):
-                self.store.save_full(step, pending.result())
+                self.store.save_full(step, pending.result(kind="full"))
         finally:
             pending.release()
 
@@ -238,10 +239,10 @@ class LowDiff:
         with trace_span("recovery.load_chain", "recovery"):
             state, diffs = rec.load_latest_chain(self.store)
         diffs = rec.contiguous_prefix(int(state["step"]), diffs)
-        with trace_span("recovery.replay", "recovery", n=len(diffs),
-                        mode=("device" if self.replay_device else
-                              "parallel" if self.parallel_recovery
-                              else "serial")):
+        mode = ("device" if self.replay_device else
+                "parallel" if self.parallel_recovery else "serial")
+        with trace_span("recovery.replay", "recovery", device=True,
+                        n=len(diffs), mode=mode):
             if self.replay_device:
                 params, opt, applied = rec.replay_device(
                     state["params"], state["opt"], diffs, lr=self.lr,

@@ -133,11 +133,17 @@ def _fused_step(p_leaves, mu_l, nu_l, hyper, g_leaves):
 
 
 def _start(params, opt: AdamState, device):
+    """The full's state uploaded to ``device``: a ``recovery.upload``
+    span with the host bytes it read."""
+    from repro_torch.obs.trace import trace_span
     dev = resolve_device(device)
-    p_leaves = [to_tensor(a, device=dev) for a in tree_leaves(params)]
-    mu_l = [to_tensor(a, device=dev) for a in tree_leaves(opt.mu)]
-    nu_l = [to_tensor(a, device=dev) for a in tree_leaves(opt.nu)]
-    count = to_tensor(opt.count, device=dev).to(torch.int32)
+    with trace_span("recovery.upload", "recovery") as sp:
+        p_leaves = [to_tensor(a, device=dev) for a in tree_leaves(params)]
+        mu_l = [to_tensor(a, device=dev) for a in tree_leaves(opt.mu)]
+        nu_l = [to_tensor(a, device=dev) for a in tree_leaves(opt.nu)]
+        count = to_tensor(opt.count, device=dev).to(torch.int32)
+        sp.set(bytes=sum(_payload_nbytes(t) for t in (params, opt.mu,
+                                                      opt.nu)))
     return dev, p_leaves, mu_l, nu_l, count
 
 

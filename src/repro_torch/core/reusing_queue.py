@@ -44,9 +44,8 @@ class ReusingQueue:
         self._inst = InstrumentSet("queue")
         self._enqueued = self._inst.counter("enqueued")
         self._dequeued = self._inst.counter("dequeued")
-        # per-put block time histogram: the registry dump gets the
-        # backpressure distribution, stats() keeps the legacy sum key
-        self._put_block = self._inst.histogram("put_block_time")
+        # seconds put() blocked, summed (each put also charges TIMELINE)
+        self._put_block = self._inst.counter("put_block_time")
         self._max_depth = self._inst.gauge("max_depth")
         self._lock = threading.Lock()
         self._closed = threading.Event()
@@ -64,7 +63,7 @@ class ReusingQueue:
 
     @property
     def put_block_time(self) -> float:
-        return self._put_block.sum
+        return float(self._put_block.value)
 
     @property
     def max_depth(self) -> int:
@@ -78,7 +77,7 @@ class ReusingQueue:
         self._q.put((step, payload))
         dt = time.perf_counter() - t0
         self._enqueued.add(1)
-        self._put_block.observe(dt)
+        self._put_block.add(dt)
         with self._lock:
             if self._q.qsize() > self._max_depth.value:
                 self._max_depth.set(self._q.qsize())

@@ -141,10 +141,14 @@ class PendingSnapshot:
                 self._leaves[i] = None      # shard landed: release it
         return host, wait
 
-    def result(self):
+    def result(self, kind: Optional[str] = None):
+        """The host tree; ``kind`` ("diff" or "full") tags the
+        ``snapshot.d2h`` span."""
         from repro_torch.obs.trace import trace_span
         with self._lock, trace_span("snapshot.d2h", "snapshot",
                                     shards=len(self._groups)) as sp:
+            if kind is not None:
+                sp.set(kind=kind)
             if self._done:
                 return self._host
             if self._device is not None:
@@ -176,13 +180,13 @@ class PendingSnapshot:
             self._arena = None
 
 
-def host_copy(tree):
+def host_copy(tree, kind: Optional[str] = None):
     """Host copy of ``tree`` (or of a :class:`PendingSnapshot`'s tree)
     with dict keys sorted, as ``jax.tree.map`` rebuilds them — the order
-    the frame writer then puts on disk."""
+    the frame writer then puts on disk. ``kind``: as in ``result``."""
     if isinstance(tree, PendingSnapshot):
-        return tree.result()
-    return PendingSnapshot(tree).result()
+        return tree.result(kind)
+    return PendingSnapshot(tree).result(kind)
 
 
 class SnapshotArena:
@@ -201,7 +205,6 @@ class SnapshotArena:
         self._inst = InstrumentSet("snapshot_arena")
         self._snapshots = self._inst.counter("snapshots")
         self._stalls = self._inst.counter("stalls")
-        self._stall_time = self._inst.histogram("stall_time_s")
 
     @property
     def snapshots(self) -> int:
@@ -221,7 +224,6 @@ class SnapshotArena:
             with trace_span("snapshot.permit_wait", "snapshot"):
                 self._sem.acquire()
             stalled = time.perf_counter() - t0
-            self._stall_time.observe(stalled)
             TIMELINE.charge("snapshot_stall", stalled)
         self._snapshots.add(1)
         return stalled

@@ -43,6 +43,7 @@ from repro_torch.compression.error_feedback import (ef_compress_tree_with,
 from repro_torch.compression.sparse import is_compressed
 from repro_torch.configs.base import DTYPES
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import trace_span
 from repro_torch.optim.adam import AdamState, adam_init
 
 
@@ -123,12 +124,20 @@ def _grads(model, params, batch, accum: int):
     split into ``accum`` contiguous micro-batches, whose gradients are
     added in order into a ``cfg.grad_accum_dtype`` buffer and divided by
     ``accum`` in that dtype; the loss is their f32 mean, and the metrics
-    are the reference's ``{"xent", "aux": 0, "tokens": 0}``."""
+    are the reference's ``{"xent", "aux": 0, "tokens": 0}``.
+    Each micro-batch opens a ``step.forward`` and a ``step.backward``
+    span, the latter with its accumulation adds."""
     live, leaves, regroup = _differentiable(params)
 
-    def one(b):
-        loss, metrics = model.loss_fn(live, b)
-        return loss, metrics, regroup(torch.autograd.grad(loss, leaves))
+    def one(b, acc=None):
+        with trace_span("step.forward", "step", device=True):
+            loss, metrics = model.loss_fn(live, b)
+        with trace_span("step.backward", "step", device=True):
+            gl = regroup(torch.autograd.grad(loss, leaves))
+            if acc is not None:
+                for a, g in zip(acc, gl):
+                    a.add_(g.to(a.dtype))
+        return loss, metrics, gl
 
     def as_tree(gl):
         git = iter(gl)
@@ -144,9 +153,7 @@ def _grads(model, params, batch, accum: int):
            for p in tree_leaves(params)]
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
     for i in range(accum):
-        loss, _, gl = one(_micro(batch, accum, i))
-        for a, g in zip(acc, gl):
-            a.add_(g.to(acc_dt))
+        loss, _, gl = one(_micro(batch, accum, i), acc)
         loss_sum = loss_sum + loss.detach()
         del gl
     loss = loss_sum / accum
@@ -175,7 +182,10 @@ def make_train_step(model, *, mode: str = "lowdiff", rho: float = 0.01,
     lowdiff_plus mode, else None. ``compressor``: 'topk', 'quant8' or
     'packed'; error feedback applies to topk and packed.
     ``reduce_grads(grads) -> grads`` runs between the gradient and the
-    update (the sharded step's sum over data shards)."""
+    update (the sharded step's sum over data shards). Traced, the step
+    is a ``step`` span holding ``step.forward`` / ``step.backward`` per
+    micro-batch, ``step.compress`` (lowdiff) and ``step.apply``, each
+    also timed on the card (``obs.trace``)."""
     if mode not in ("lowdiff", "dense", "lowdiff_plus"):
         raise ValueError(f"unknown step mode {mode!r}")
     if compressor not in COMPRESSORS:
@@ -189,6 +199,10 @@ def make_train_step(model, *, mode: str = "lowdiff", rho: float = 0.01,
     cfg = model.cfg
 
     def step(state, batch):
+        with trace_span("step", "step", device=True):
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         loss, metrics, grads = _grads(model, params, batch, cfg.grad_accum)
         if reduce_grads is not None:
@@ -198,18 +212,21 @@ def make_train_step(model, *, mode: str = "lowdiff", rho: float = 0.01,
         hyper = ops.adam_hyper_traced(lr, b1, b2, eps, count)
         extra, ef = None, None
         if mode == "lowdiff":
-            if decompress is not None and error_feedback and "ef" in state:
-                cg, ef = ef_compress_tree_with(grads, state["ef"], compress,
-                                               decompress)
-            else:
-                cg = tree_map(compress, grads)
+            with trace_span("step.compress", "step", device=True):
+                if (decompress is not None and error_feedback
+                        and "ef" in state):
+                    cg, ef = ef_compress_tree_with(grads, state["ef"],
+                                                   compress, decompress)
+                else:
+                    cg = tree_map(compress, grads)
             extra, payloads = cg, cg
         else:
             payloads = grads
             if mode == "lowdiff_plus":
                 extra = grads
         del grads
-        params2, opt2 = _apply_tree(params, payloads, opt, hyper, count)
+        with trace_span("step.apply", "step", device=True):
+            params2, opt2 = _apply_tree(params, payloads, opt, hyper, count)
         new_state = {"params": params2, "opt": opt2,
                      "step": state["step"] + 1}
         if ef is not None:
