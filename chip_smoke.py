@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only dist        # the build and phase K
     python3 chip_smoke.py --only roof        # the build and phase L
     python3 chip_smoke.py --only trace       # the build and phase T
+    python3 chip_smoke.py --only head        # the build and phase X
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -34,6 +35,17 @@ A. hold K5-K7 (the int8/int4 row-span codec) against their plain
    each leaf; print K5's plan per leaf and the rows and elements of each
    of its paths (``[paths] span_pack``); time them over one step's worth
    of rows (K5 at int8 and int4, K6 beside ``torch.mul(q, scale)``);
+X. the loss head on tensor cores (``phase_head``; ``--only head`` runs
+   the build and this phase alone): at DeepSeekMoE's and gpt2-l's chunk
+   shapes, ``xent_rows`` and ``xent_grad_split`` against their plain
+   versions and timed against their byte bounds; one micro-batch of the
+   head's forward + backward through ``_TensorCoreXent`` against the
+   up-cast path (loss, dh, dW, time, peak memory; one launch of each
+   kernel per chunk), the control (the logit gradient rounded once to
+   bf16), which must fail that comparison, and a profile of it in which
+   no GEMM runs on CUDA cores (``[head]`` lines); phases 3, 4, C, D, F,
+   I then require the head's kernels once a chunk per micro-batch and
+   step of their own training;
 3. drive the LowDiff path: ``LowDiff`` on full-width gpt2-l (batch 4,
    seq 64, the CLI's f=20, b=2), resumed at step 19 so that its 20 steps
    write a full and then the longest chain those defaults produce (19
@@ -1230,6 +1242,32 @@ def _residual_check(state, compressor: str, reps: int = REPS):
 PATH_KERNELS = {"topk": ("topk_select", "topk_scatter", "topk_apply"),
                 "packed": ("pack_select", "pack_scatter", "packed_apply"),
                 "quant8": ("quantize", "dequantize", "quant_apply")}
+#: the loss head's kernels (phase X), launched by every bf16 training step
+HEAD_KERNELS = ("xent_rows", "xent_grad_split")
+
+
+def _head_launches(cfg, dev, seq: int, steps: int) -> int:
+    """Launches of each head kernel that ``steps`` training steps of
+    ``cfg`` on rows of ``seq`` tokens make: one per chunk of
+    ``cfg.loss_chunk`` tokens (the last may be shorter) per micro-batch
+    where the compute dtype is bf16 on the card, none otherwise (the
+    up-cast path)."""
+    if dev.type != "cuda" or cfg.compute_dtype != "bfloat16":
+        return 0
+    return steps * cfg.grad_accum * -(-seq // min(cfg.loss_chunk, seq))
+
+
+def _head_check(cfg, dev, seq: int, steps: int, tag: str) -> None:
+    """The head kernels' launches since the last reset, against
+    :func:`_head_launches`."""
+    from repro_torch.kernels import build
+    got = {k: build.LAUNCHES[k] for k in HEAD_KERNELS}
+    want = _head_launches(cfg, dev, seq, steps)
+    if got != dict.fromkeys(HEAD_KERNELS, want):
+        fail(f"{tag} the loss head launched {got}, want {want} of each "
+             f"({steps} steps x {cfg.grad_accum} micro-batches x chunks of "
+             f"{cfg.loss_chunk} over {seq} tokens, {cfg.compute_dtype})")
+    log(f"{tag} loss head launches {got} ({steps} steps)")
 
 
 def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
@@ -1243,9 +1281,10 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
     ``full_interval`` and the differentials after it; then fail, recover
     by device replay (bitwise) and, with ``parallel``, by parallel
     replay (within the reassociation tolerance), and require the
-    compressor's kernels to have launched. With top-k, K4 and K2 are
-    also held against their plain versions on the last step's own leaves
-    and payload. Returns (launch counts of this run, payload bytes of
+    compressor's kernels to have launched, and the loss head's kernels
+    once a chunk per micro-batch and step (``_head_check``). With top-k,
+    K4 and K2 are also held against their plain versions on the last
+    step's own leaves and payload. Returns (launch counts of this run, payload bytes of
     the last step); ``stats`` (a dict) receives the state bytes, the
     step times, the training and recovery peaks of device memory and the
     recovery times."""
@@ -1303,6 +1342,7 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
     train_peak = torch.cuda.max_memory_allocated(dev)
+    _head_check(cfg, dev, seq, steps, tag)
     if not all(math.isfinite(l) for l in losses):
         fail(f"non-finite loss {losses}")
     log(f"{tag} step_ms={[round(s, 3) for s in step_ms]} "
@@ -1411,8 +1451,9 @@ def _main_done(strat, ckdir: str, tag: str, compressor: str) -> dict:
 
 # ---------------------------------------------------------------- phase 4
 def phase_dense(cfg, dev, steps: int = 3, tag: str = "[dense]"):
-    """``steps`` dense (``--strategy none``) steps, which launch K3, then
-    K3 held against its plain version on the last step's leaves.
+    """``steps`` dense (``--strategy none``) steps, which launch K3 (and
+    the loss head's kernels, ``_head_check``), then K3 held against its
+    plain version on the last step's leaves.
     Returns (launch counts, step ms)."""
     import torch
     from repro_torch.core.steps import init_state, make_train_step
@@ -1436,6 +1477,7 @@ def phase_dense(cfg, dev, steps: int = 3, tag: str = "[dense]"):
     launches = dict(build.LAUNCHES)
     if launches["adam_tile_update"] <= 0:
         fail("--strategy none did not launch adam_tile_update")
+    _head_check(cfg, dev, 64, steps, tag)
     if not all(math.isfinite(l) for l in losses):
         fail(f"non-finite dense loss {losses}")
     log(f"{tag} step_ms={[round(s, 3) for s in step_ms]} "
@@ -2040,7 +2082,7 @@ def phase_families(dev, ckdir: str):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import DTYPES
     from repro_torch.models.registry import build_model
-    total = {k: 0 for k in PATH_KERNELS["topk"]}
+    total = {k: 0 for k in PATH_KERNELS["topk"] + HEAD_KERNELS}
     for tag, arch, cut, batch, seq, parallel in FAMILIES:
         full = get_config(arch)
         cfg = full.replace(**cut)
@@ -3742,6 +3784,199 @@ def phase_trace(dev) -> dict:
     return {}
 
 
+# ---------------------------------------------------------------- phase X
+#: the benchmark's head shapes: B, S, D, V, head weight dtype, chunk
+#: (DeepSeekMoE one micro-batch of 4096, gpt2-l 4 x 1024)
+HEAD_SHAPES = {"dsmoe": (1, 4096, 2048, 102400, "bfloat16", 512),
+               "gpt2l": (4, 1024, 1280, 50257, "float32", 512)}
+#: GEMM kernels that multiply on CUDA cores: none may run in the head
+HEAD_FORBIDDEN = ("f32f32", "sgemm", "simt")
+
+
+def _head_inputs(shape: str, dev):
+    import torch
+    B, S, D, V, wdt, chunk = HEAD_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    h = torch.randn(B, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(D, V, generator=gen, device=dev) * D ** -0.5).to(
+        getattr(torch, wdt))
+    t = torch.randint(0, V, (B, S), generator=gen, device=dev,
+                      dtype=torch.int32)
+    m = (torch.rand(B, S, generator=gen, device=dev) > 0.1).float()
+    return h, w, t, m, chunk
+
+
+def _head_fwd_bwd(fn, h, w, t, m, chunk):
+    import torch
+    h = h.detach().requires_grad_(True)
+    w = w.detach().requires_grad_(True)
+    tot, cnt = fn(h, w, t, m, chunk)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    dh, dw = torch.autograd.grad(loss, [h, w])
+    return loss.detach(), dh, dw
+
+
+def _split_once(kx):
+    """``kx.xent_grad_split`` as the control: the logit gradient rounded
+    once to bf16 (hi alone, mid and lo zero). Returns the original."""
+    split = kx.xent_grad_split
+
+    def once(*args):
+        planes = split(*args).clone()
+        planes[planes.shape[0] // 3:] = 0
+        return planes
+    kx.xent_grad_split = once
+    return split
+
+
+def phase_head(dev, reps: int = REPS) -> dict:
+    """X. the loss head on tensor cores (``--only head``): at the
+    benchmark's chunk shapes, ``xent_rows`` and ``xent_grad_split``
+    against their plain versions (lse to 2^-20, the split bitwise, and
+    hi + mid + lo == the plain f32 gradient), timed against their byte
+    bounds; then one micro-batch of the head forward + backward, the
+    tensor-core path against the up-cast path (loss; dh and dW within
+    ``ref.rounded_apart``'s bounds, dW's from the up-cast path's chunk
+    terms; time, peak memory, launches: one of each kernel per chunk),
+    the control (the logit gradient rounded once to bf16), which must
+    fall outside those bounds, and a profile of the tensor-core path in
+    which no GEMM runs on CUDA cores."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import xent as kx
+    from repro_torch.models import ops
+    t_phase = time.perf_counter()
+    if not hasattr(torch.ops.aten.mm, "dtype"):
+        fail(f"torch {torch.__version__} has no aten::mm.dtype")
+    a = torch.randn(256, 512, device=dev).to(torch.bfloat16)
+    b = torch.randn(384, 512, device=dev).to(torch.bfloat16).T
+    err = abs_err(ops._mm_f32(a, b), a.float() @ b.float())
+    log(f"[head] aten::mm.dtype bf16 x bf16^T -> f32 on torch "
+        f"{torch.__version__}: |err| vs f32 products {err:.3e}")
+    if err > 1e-3:
+        fail("[head] mm.dtype disagrees with the f32 products")
+    out = {}
+    for shape in HEAD_SHAPES:
+        h, w, t, m, chunk = _head_inputs(shape, dev)
+        B, S, D = h.shape
+        V = w.shape[1]
+        R = B * chunk
+        wp = ops._head_operand(w, torch.bfloat16)
+        ld = wp.shape[1]
+        hc, tc, mc = ops._chunk_rows(h, t, m, 0, chunk)
+        x = ops._mm_f32(hc, wp)
+        got = kx.xent_rows(x, tc, mc, V)
+        want = ref.xent_rows_ref(x, tc, mc, V)
+        lse_rel = float(((got[0] - want[0]).abs()
+                         / want[0].abs().clamp_min(1e-30)).max())
+        if lse_rel > 2.0 ** -20 or not torch.equal(got[1], want[1]):
+            fail(f"[head] {shape} xent_rows: lse rel {lse_rel:.3e}")
+        dtot = torch.tensor([1.0 / (B * S)], device=dev)
+        planes = kx.xent_grad_split(x, want[0], tc, mc, dtot, V)
+        pref = ref.xent_grad_split_ref(x, want[0], tc, mc, dtot, V)
+        p = planes.float()
+        g = (p[:R] + p[R:2 * R]) + p[2 * R:]
+        q = pref.float()
+        if not torch.equal(g, (q[:R] + q[R:2 * R]) + q[2 * R:]):
+            fail(f"[head] {shape} xent_grad_split: hi + mid + lo differs "
+                 f"from the plain f32 gradient")
+        split_bitwise = bits_equal(planes, pref)
+        if not split_bitwise:
+            fail(f"[head] {shape} xent_grad_split planes differ")
+        rows_bytes = R * ld * 4 + R * (4 + 4) + 3 * R * 4
+        split_bytes = R * ld * 4 + 3 * R * ld * 2 + R * 12
+        for name, fn, plain, nbytes in (
+                ("xent_rows", lambda: kx.xent_rows(x, tc, mc, V),
+                 lambda: ref.xent_rows_ref(x, tc, mc, V), rows_bytes),
+                ("xent_grad_split",
+                 lambda: kx.xent_grad_split(x, want[0], tc, mc, dtot, V),
+                 lambda: ref.xent_grad_split_ref(x, want[0], tc, mc, dtot,
+                                                 V), split_bytes)):
+            r = {"ms": timed(fn, reps), "plain_ms": timed(plain, reps),
+                 "bytes": nbytes, "ops": 0,
+                 "max_abs_err": (abs_err(got[0], want[0])
+                                 if name == "xent_rows" else 0.0)}
+            _bound(r)
+            out[f"{name}.{shape}"] = r
+            log(f"[head] {shape} {name} R {R} x ld {ld}: "
+                f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes, "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}%), plain "
+                f"{r['plain_ms']:.4f} ms")
+        del x, planes, pref, p, q, g
+        # the whole head, one micro-batch
+        n_chunks = S // chunk
+        paths = {"tensor_core": ops._TensorCoreXent.apply,
+                 "upcast": lambda *a: ops._xent_upcast(*a, True)}
+        res = {}
+        for pname, fn in paths.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            n0 = dict(build.LAUNCHES)
+            res[pname] = _head_fwd_bwd(fn, h, w, t, m, chunk)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = {k: build.LAUNCHES[k] - n0[k]
+                        for k in ("xent_rows", "xent_grad_split")}
+            ms = timed(lambda: _head_fwd_bwd(fn, h, w, t, m, chunk), 5)
+            out[f"head.{shape}.{pname}"] = {"ms": ms, "peak_bytes": peak}
+            log(f"[head] {shape} fwd+bwd {pname}: {ms:.3f} ms, peak "
+                f"{peak / 1e9:.3f} GB above inputs, launches {launches}")
+            if pname == "tensor_core" and launches != {
+                    "xent_rows": n_chunks, "xent_grad_split": n_chunks}:
+                fail(f"[head] {shape}: {launches}, want {n_chunks} each")
+        tc, up = res["tensor_core"], res["upcast"]
+        wl = w.detach().requires_grad_(True)
+        terms = ops._xent_upcast_terms(h, wl, t, m, chunk, wl)
+        del wl
+        saved = _split_once(kx)
+        try:
+            once = _head_fwd_bwd(ops._TensorCoreXent.apply, h, w, t, m,
+                                 chunk)
+        finally:
+            kx.xent_grad_split = saved
+        loss_rel = abs(float(tc[0]) / float(up[0]) - 1.0)
+        speed = (out[f"head.{shape}.upcast"]["ms"]
+                 / out[f"head.{shape}.tensor_core"]["ms"])
+        gaps = {}
+        for name, got in (("split", tc), ("once", once)):
+            gaps[name] = (ref.rounded_apart(got[1], up[1]),
+                          ref.rounded_apart(got[2], up[2], terms))
+            (dh_r, dh_s), (dw_r, dw_s) = gaps[name]
+            log(f"[head] {shape} {name} vs upcast: dh {dh_r:.3f} of its "
+                f"bound max ({100 * dh_s:.3f}% differ), dW {dw_r:.3f} of "
+                f"its bound max ({100 * dw_s:.3f}% differ)"
+                + (f", loss rel {loss_rel:.3e}, speed-up {speed:.2f}x"
+                   if name == "split" else
+                   " (the control: g rounded once to bf16)"))
+        if loss_rel > 2.0 ** -18 or any(r > 1.0 or sh >= 0.05
+                                        for r, sh in gaps["split"]):
+            fail(f"[head] {shape}: tensor-core path off the up-cast path")
+        if not all(r > 1.0 or sh >= 0.05 for r, sh in gaps["once"]):
+            fail(f"[head] {shape}: the comparison passes a gradient "
+                 f"rounded once to bf16")
+        del terms, once
+        del res, tc, up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _head_fwd_bwd(ops._TensorCoreXent.apply, h, w, t, m, chunk)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                by_name[e.key] = e.device_time_total / 1e3
+        bad = [k for k in by_name if any(f in k for f in HEAD_FORBIDDEN)]
+        for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"[head] {shape} profile {v:9.3f} ms  {k[:100]}")
+        if bad:
+            fail(f"[head] {shape}: CUDA-core GEMMs in the head: {bad}")
+        del h, w, t, m, wp
+        torch.cuda.empty_cache()
+    log(f"[time] phase X: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- main
 KERNELS = [
     ("topk_select", "src/repro_torch/kernels/csrc/topk.cu",
@@ -3777,10 +4012,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("all", "kernels", "families",
                                        "serve", "hymba-f32", "dist", "roof",
-                                       "trace"),
-                    default="all", help="kernels: stop after phase A; "
-                    "families / serve / dist / roof / trace: the build and "
-                    "phase I / J / K / L / T alone; hymba-f32: the build "
+                                       "trace", "head"),
+                    default="all", help="kernels: stop after phases A and X; "
+                    "families / serve / dist / roof / trace / head: the "
+                    "build and phase I / J / K / L / T / X alone; "
+                    "hymba-f32: the build "
                     "and J2's Hymba with f32 compute")
     ap.add_argument("--roof-cpu", default=None, metavar="OUT",
                     help=argparse.SUPPRESS)   # phase L's child process
@@ -3820,11 +4056,13 @@ def main() -> int:
         child = _start_roof_cpu()
         atexit.register(_stop_child, child[0])
     if args.only in ("families", "serve", "hymba-f32", "dist", "roof",
-                     "trace"):
+                     "trace", "head"):
         if args.only == "dist":
             got = phase_dist(dev)
         elif args.only == "trace":
             got = phase_trace(dev)
+        elif args.only == "head":
+            got = {k: v["ms"] for k, v in phase_head(dev).items()}
         elif args.only == "roof":
             got = phase_roof(cfg, dev, smi, child)
         elif args.only == "hymba-f32":
@@ -3847,6 +4085,9 @@ def main() -> int:
     build.reset_launches()
     res.update(phase_span(cfg, dev))
     log(f"[time] + phase A: {time.perf_counter() - t_all:.1f} s")
+    head = phase_head(dev)
+    log(f"[time] + phase X: {time.perf_counter() - t_all:.1f} s")
+    build.reset_launches()
     # no training or recovery path packs or decodes alone on the card
     # (the replica quantizes on the host, and K7 decodes inside itself,
     # as in the reference): K5/K6 launches are those of phase A's checks
@@ -3857,9 +4098,11 @@ def main() -> int:
         p3 = {}
         got, diff_bytes = phase_main(cfg, dev, args.ckpt_dir, stats=p3)
         launches.update({k: v for k, v in got.items()
-                         if k in PATH_KERNELS["topk"]})
+                         if k in PATH_KERNELS["topk"] + HEAD_KERNELS})
         got, dense_ms = phase_dense(cfg, dev)
         launches["adam_tile_update"] = got["adam_tile_update"]
+        for k in HEAD_KERNELS:
+            launches[k] += got[k]
         log(f"[time] + phases 3, 4: {time.perf_counter() - t_all:.1f} s")
         # at full width, cut in depth to 6 of 36 layers: the host-bound
         # numpy replica takes most of the script's time at full depth,
@@ -3899,8 +4142,8 @@ def main() -> int:
             launches[k] += v
         log(f"[time] + phase H: {time.perf_counter() - t_all:.1f} s")
         got = phase_families(dev, args.ckpt_dir)
-        for k in PATH_KERNELS["topk"]:
-            launches[k] += got[k]
+        for k in PATH_KERNELS["topk"] + HEAD_KERNELS:
+            launches[k] += got.get(k, 0)
         log(f"[time] + phase I: {time.perf_counter() - t_all:.1f} s")
         got = phase_serve(dev, args.ckpt_dir)
         for k in PATH_KERNELS["topk"]:
@@ -3926,6 +4169,16 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    # the head's kernels replace no pallas_call; timed at DeepSeekMoE's
+    # chunk shape, launched by the training paths above
+    for name in HEAD_KERNELS:
+        r = head[f"{name}.dsmoe"]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/xent.cu",
+                        "replaces": None, "launches": launches.get(name, 0),
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -65,6 +65,13 @@ class StorageBackend(abc.ABC):
     def put(self, key: str, obj: Any) -> int:
         """Store obj. Returns bytes written."""
 
+    def put_owned(self, key: str, obj: Any) -> int:
+        """:meth:`put` of a tree whose host arrays the caller hands over:
+        no one else holds, writes or reuses them afterwards, so a tier
+        that keeps bytes in RAM may keep these without a copy. Here: put.
+        """
+        return self.put(key, obj)
+
     @abc.abstractmethod
     def get(self, key: str) -> Any:
         """Load and return the blob. Raises FileNotFoundError if absent."""
@@ -345,10 +352,18 @@ class MemoryTierBackend(StorageBackend):
                         key=key):
             return self._put_impl(key, obj)
 
-    def _put_impl(self, key: str, obj: Any) -> int:
+    def put_owned(self, key: str, obj: Any) -> int:
+        """:meth:`put` without the copy: the tier keeps the caller's host
+        arrays (views of them), which the caller hands over."""
+        with trace_span("backend.put", "backend", tier=self.name,
+                        key=key, owned=True):
+            return self._put_impl(key, obj, copy=False)
+
+    def _put_impl(self, key: str, obj: Any, copy: bool = True) -> int:
         struct, arrays = cio.pack(obj)
-        # np.array COPIES: the tier owns its bytes
-        arrays = [np.array(a) for a in arrays]
+        if copy:
+            # np.array COPIES: the tier owns its bytes
+            arrays = [np.array(a) for a in arrays]
         nbytes = int(sum(a.nbytes for a in arrays))
         self._prune_done()
         with self._lock:

@@ -219,7 +219,8 @@ class CheckpointStore:
         self._bytes_written.add(nbytes)
         self._writes.add(1)
 
-    def _put(self, span: str, key: str, obj, **attrs) -> int:
+    def _put(self, span: str, key: str, obj, owned: bool = False,
+             **attrs) -> int:
         # pre-protect: a capacity-bounded tier must not evict the
         # incoming blob before the journal records it, even when a
         # concurrent writer (the batch consumer, the other persist
@@ -231,7 +232,8 @@ class CheckpointStore:
         try:
             with trace_span(span, "store", key=key, **attrs) as sp:
                 t0 = time.perf_counter()
-                n = self.backend.put(key, obj)
+                n = (self.backend.put_owned(key, obj) if owned
+                     else self.backend.put(key, obj))
                 self._write_time.observe(time.perf_counter() - t0)
                 sp.set(bytes=n)
         except BaseException:
@@ -241,13 +243,14 @@ class CheckpointStore:
         return n
 
     # ------------------------------------------------------------------
-    def save_full(self, step: int, state, *, record_names: bool = False)\
-            -> str:
+    def save_full(self, step: int, state, *, record_names: bool = False,
+                  owned: bool = False) -> str:
         """``record_names`` journals the path -> frame leaf name map that
         lets a later patch chain address this full's leaves for the
-        in-place fold."""
+        in-place fold. ``owned``: ``state``'s host arrays are handed over
+        (``StorageBackend.put_owned``): a RAM tier keeps them uncopied."""
         key = f"full_{step:08d}"
-        n = self._put("store.save_full", key, state)
+        n = self._put("store.save_full", key, state, owned=owned)
         entry = {"step": step, "key": key,
                  "path": self.backend.url(key), "bytes": n}
         if record_names:

@@ -193,9 +193,15 @@ class LowDiff:
         return state, metrics
 
     def _persist_full(self, step: int, pending):
+        # the snapshot's host blocks are its own (fresh pinned buffers,
+        # dropped by release()), so they are handed to the store: a RAM
+        # tier keeps them instead of copying 1-2 GB/s into fresh pages,
+        # which at a full every few seconds overlapped one full's copy
+        # with the next and held both, and the snapshots' blocks, at once
         try:
             with trace_span("persist.full", "persist", step=step):
-                self.store.save_full(step, pending.result(kind="full"))
+                self.store.save_full(step, pending.result(kind="full"),
+                                     owned=True)
         finally:
             pending.release()
 

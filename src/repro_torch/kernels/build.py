@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("topk", "fused_adam", "replay", "span", "quant8")
+SOURCES = ("topk", "fused_adam", "replay", "span", "quant8", "xent")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               # every product and sum rounded on its own, as the plain
@@ -40,7 +40,8 @@ LAUNCHES: Dict[str, int] = {"topk_select": 0, "topk_scatter": 0,
                             "quant_span_apply": 0, "pack_select": 0,
                             "pack_scatter": 0, "packed_apply": 0,
                             "quantize": 0, "dequantize": 0,
-                            "quant_apply": 0}
+                            "quant_apply": 0, "xent_rows": 0,
+                            "xent_grad_split": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -141,6 +142,8 @@ _SIGS = {
              "span_pack_two_pass": [_VP] * 4 + [_LL, _LL, _INT, _VP],
              "span_decode": [_VP] * 3 + [_LL] * 3 + [_INT, _VP],
              "span_apply_": [_VP] * 3 + [_LL] * 4 + [_INT, _VP]},
+    "xent": {"xent_rows_": [_VP] * 6 + [_LL] * 3 + [_VP],
+             "xent_grad_split_": [_VP] * 6 + [_LL] * 3 + [_VP]},
 }
 
 

@@ -199,3 +199,75 @@ def quant_span_apply_ref(q, scale, dst: torch.Tensor, start: int, *,
     dst[start:start + n] = rows.reshape((n,) + tuple(dst.shape[1:])).to(
         dst.dtype)
     return dst
+
+
+def split3_bf16(g: torch.Tensor) -> torch.Tensor:
+    """f32 ``g`` as its three-term bf16 split stacked on dim 0: hi =
+    bf16(g), mid = bf16(g - hi), lo = bf16(g - hi - mid), each rounded
+    to nearest even. Each subtraction is exact in f32, so hi + mid + lo
+    == g bit for bit while lo stays a normal bf16."""
+    hi = g.to(torch.bfloat16)
+    r1 = g - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return torch.cat([hi, mid, lo], dim=0)
+
+
+def xent_rows_ref(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor, n_valid: int):
+    """``xent_rows``: per row of f32 ``logits`` (R, ld) whose first
+    ``n_valid`` columns are the vocabulary, (lse, tgt, (lse - tgt) *
+    mask), each (R,) f32."""
+    x = logits[:, :n_valid]
+    lse = torch.logsumexp(x, dim=-1)
+    tgt = torch.gather(x, -1, targets[:, None].long())[:, 0]
+    return lse, tgt, (lse - tgt) * mask
+
+
+def xent_grad_split_ref(logits: torch.Tensor, lse: torch.Tensor,
+                        targets: torch.Tensor, mask: torch.Tensor,
+                        dtot: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """``xent_grad_split``: the gradient of sum((lse - tgt) * mask) *
+    dtot with respect to the logits, formed as autograd forms it (gm =
+    dtot * mask; gm * exp(x - lse), and -gm added at the target), zero in
+    the padding columns, as :func:`split3_bf16` planes: (3R, ld) bf16."""
+    x = logits[:, :n_valid]
+    gm = (dtot.reshape(()) * mask)[:, None]
+    g = (gm * torch.exp(x - lse[:, None])).scatter_add(
+        1, targets[:, None].long(), -gm)
+    g = F.pad(g, (0, logits.shape[1] - n_valid))
+    return split3_bf16(g)
+
+
+def rounded_apart(got: torch.Tensor, want: torch.Tensor,
+                  terms=None) -> tuple:
+    """How far ``got`` lies from ``want`` where both round the same f32
+    values, summed in other orders: (the largest |got - want| over its
+    bound, the share of elements that differ). Within the bound, the
+    ratio is at most 1.
+
+    Without ``terms``, both are one rounding to bf16: an element may land
+    on the neighbouring bf16 value, one spacing away, at most 2^-7 of
+    it; a sum that cancels far below the tensor's scale is off by the
+    f32 rounding of its larger parts, so the spacing at 2^-10 of the
+    largest element is added. With ``terms`` (the reference's summands,
+    each such a rounding, in the order ``want`` summed them in its own
+    dtype), each term brings its own bound as above, and each partial
+    sum, rounded to ``want``'s dtype, one spacing of itself."""
+    a, b = got.float(), want.float()
+
+    def one(x):
+        x = x.float().abs()
+        return 2.0 ** -7 * (x + 2.0 ** -10 * float(x.max()))
+    if terms is None:
+        bound = one(b)
+    else:
+        eps = torch.finfo(want.dtype).eps
+        bound = one(terms[0])
+        acc = terms[0]
+        for t in terms[1:]:
+            acc = acc + t
+            bound = bound + one(t) + eps * acc.float().abs()
+    differ = a != b
+    ratio = torch.where(differ, (a - b).abs() / bound, torch.zeros_like(a))
+    return float(ratio.max()), float(differ.float().mean())

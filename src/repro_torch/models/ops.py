@@ -7,6 +7,18 @@ product the reference asks for with ``preferred_element_type=f32``
 multiplies f32 up-casts of its (bf16) inputs: the products of two bf16
 values are exact in f32 and the sum accumulates in f32, which is what
 the reference computes — a bf16 product cast up afterwards is not.
+
+The loss head takes the same argument onto the card's tensor cores: for
+bf16 CUDA tensors :func:`chunked_softmax_xent` runs
+:class:`_TensorCoreXent`, whose GEMMs multiply the bf16 operands
+themselves with f32 accumulation and an f32 output (``aten::mm.dtype``)
+— the same exact products, summed in f32 in another order — and whose
+row kernels (``kernels/xent.py``, bound by bytes) read each chunk's f32
+logits once. Its backward writes the f32 logit gradient as three bf16
+terms whose sum is that gradient bit for bit, so it too enters the
+backward's tensor-core GEMMs at f32 precision. The CPU, the dry run's
+fake tensors and an f32 compute dtype keep the up-cast path
+(:func:`_xent_upcast`). Attention's einsums still multiply up-casts.
 """
 from __future__ import annotations
 
@@ -15,6 +27,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import xent
 
 NEG_INF = -1e30
 
@@ -127,19 +141,10 @@ def _xent_chunk(hb, tb, mb, w_lm):
     return loss.sum(), mb.sum()
 
 
-def chunked_softmax_xent(h, w_lm, targets, *, chunk=512, mask=None,
-                         remat=True):
-    """Cross-entropy without materializing (B, S, V) logits.
-
-    h: (B, S, D) final hidden; w_lm: (D, V); targets: (B, S) int32.
-    Returns (sum_loss, n_tokens). Chunks are recomputed on backward.
-    """
-    B, S, D = h.shape
-    chunk = min(chunk, S)
-    assert S % chunk == 0
-    mr = (mask if mask is not None
-          else torch.ones(targets.shape, dtype=torch.float32,
-                          device=h.device))
+def _xent_upcast(h, w_lm, targets, mr, chunk, remat):
+    """The plain head: f32 up-casts multiplied chunk by chunk, each chunk
+    recomputed on backward when ``remat``."""
+    S = h.shape[1]
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, chunk):
@@ -152,6 +157,141 @@ def chunked_softmax_xent(h, w_lm, targets, *, chunk=512, mask=None,
         tot = tot + l
         cnt = cnt + c
     return tot, cnt
+
+
+def _xent_upcast_terms(h, w_lm, targets, mr, chunk, wrt):
+    """The up-cast path's gradient of the mean loss with respect to the
+    leaf ``wrt`` (``w_lm`` itself, or the tensor a tied head transposes)
+    chunk by chunk, each in ``wrt``'s dtype, last chunk first: the terms
+    autograd sums, in its order. For comparisons of the head's dW."""
+    cnt = torch.clamp(mr.sum(), min=1.0)
+    terms = []
+    for i in reversed(range(0, h.shape[1], chunk)):
+        lc, _ = _xent_chunk(h[:, i:i + chunk], targets[:, i:i + chunk],
+                            mr[:, i:i + chunk], w_lm)
+        terms.append(torch.autograd.grad(lc / cnt, [wrt])[0])
+    return terms
+
+
+def _mm_f32(a, b):
+    """``a @ b`` of two bf16 matrices with f32 products and sums: on the
+    card a tensor-core GEMM with an f32 output, on the CPU the same
+    products of f32 up-casts."""
+    if a.is_cuda:
+        return torch.ops.aten.mm.dtype(a, b, torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _head_operand(w, dtype):
+    """The head weight (D, V) in ``dtype``, as (D, V8) with V8 = V rounded
+    up to 8 and zeros in the added columns, so that every logits row
+    starts 32-byte aligned and the GEMMs get aligned leading dimensions;
+    ``w`` itself (any strides, a tied head's transpose too) where it is
+    in ``dtype`` already and V is a multiple of 8."""
+    D, V = w.shape
+    V8 = -(-V // 8) * 8
+    if w.dtype == dtype and V8 == V:
+        return w
+    out = torch.empty((D, V8), dtype=dtype, device=w.device)
+    out[:, :V].copy_(w)
+    out[:, V:].zero_()
+    return out
+
+
+def _chunk_rows(h, targets, mr, i, chunk):
+    """Chunk ``[i, i + chunk)`` of the sequence (shorter at its end when
+    ``chunk`` does not divide S) as rows: h (R, D), targets (R,) int32,
+    the mask (R,) f32, R = B * its length."""
+    B, S, D = h.shape
+    R = B * (min(i + chunk, S) - i)
+    return (h[:, i:i + chunk].reshape(R, D),
+            targets[:, i:i + chunk].reshape(R).to(torch.int32),
+            mr[:, i:i + chunk].reshape(R).float())
+
+
+class _TensorCoreXent(torch.autograd.Function):
+    """The chunked head with bf16 tensor-core products (see the module
+    docstring). Forward: per chunk, f32 logits from a bf16 GEMM, then
+    ``xent_rows``; saves h, the head weight in the compute dtype (cast
+    once a call) and each row's lse. Backward: per chunk, the logits
+    again, ``xent_grad_split``'s planes G = [hi; mid; lo] (3R, V8), dh
+    as the f32 sum of the three (R, D) blocks of G @ W^T, and dW =
+    [h; h; h]^T @ G (K = 3R). Rounding points as in the up-cast path:
+    dh leaves in h's dtype, each chunk's dW is rounded to the compute
+    dtype and the chunks' dW are summed in the weight's dtype, last
+    chunk first, as autograd sums them. The logits are recomputed
+    whatever ``remat`` says."""
+
+    @staticmethod
+    def forward(ctx, h, w_lm, targets, mr, chunk):
+        B, S, _ = h.shape
+        V = w_lm.shape[1]
+        w = _head_operand(w_lm, h.dtype)
+        lse = torch.empty((B, S), dtype=torch.float32, device=h.device)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, S, chunk):
+            hc, tc, mc = _chunk_rows(h, targets, mr, i, chunk)
+            l, _, loss = xent.xent_rows(_mm_f32(hc, w), tc, mc, V)
+            lse[:, i:i + chunk] = l.view(B, -1)
+            tot = tot + loss.sum()
+            cnt = cnt + mr[:, i:i + chunk].sum()
+        ctx.save_for_backward(h, w, lse, targets, mr)
+        ctx.chunk, ctx.V, ctx.w_dtype = chunk, V, w_lm.dtype
+        ctx.mark_non_differentiable(cnt)
+        return tot, cnt
+
+    @staticmethod
+    def backward(ctx, dtot, _dcnt):
+        h, w, lse, targets, mr = ctx.saved_tensors
+        chunk, V = ctx.chunk, ctx.V
+        need_h, need_w = ctx.needs_input_grad[:2]
+        B, S, D = h.shape
+        dtot = dtot.float().reshape(1).contiguous()
+        dh = torch.empty_like(h) if need_h else None
+        dw = None
+        for i in reversed(range(0, S, chunk)):
+            hc, tc, mc = _chunk_rows(h, targets, mr, i, chunk)
+            R = hc.shape[0]
+            lc = lse[:, i:i + chunk].reshape(R)
+            g = xent.xent_grad_split(_mm_f32(hc, w), lc, tc, mc, dtot, V)
+            if need_h:
+                d = _mm_f32(g, w.T)
+                dh[:, i:i + chunk] = (d[:R] + (d[R:2 * R] + d[2 * R:])).view(
+                    B, -1, D)
+            if need_w:
+                dwc = _mm_f32(torch.cat([hc, hc, hc]).T, g)[:, :V]
+                dwc = dwc.to(h.dtype).to(ctx.w_dtype)
+                dw = dwc if dw is None else dw.add_(dwc)
+        return dh, dw, None, None, None
+
+
+def _tensor_core_head(h) -> bool:
+    if not (h.is_cuda and h.dtype == torch.bfloat16):
+        return False
+    from torch._subclasses.fake_tensor import is_fake
+    return not is_fake(h)
+
+
+def chunked_softmax_xent(h, w_lm, targets, *, chunk=512, mask=None,
+                         remat=True):
+    """Cross-entropy without materializing (B, S, V) logits.
+
+    h: (B, S, D) final hidden; w_lm: (D, V); targets: (B, S) int32.
+    Returns (sum_loss, n_tokens). Chunks are recomputed on backward.
+    bf16 ``h`` on the card goes through :class:`_TensorCoreXent`;
+    anything else through the up-cast path. (f16 stays there too: its
+    five exponent bits cannot hold the three-term split of a gradient.)
+    """
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    assert S % chunk == 0
+    mr = (mask if mask is not None
+          else torch.ones(targets.shape, dtype=torch.float32,
+                          device=h.device))
+    if _tensor_core_head(h):
+        return _TensorCoreXent.apply(h, w_lm, targets, mr, chunk)
+    return _xent_upcast(h, w_lm, targets, mr, chunk, remat)
 
 
 def as_dtype(v: float, dtype) -> float:

@@ -338,6 +338,69 @@ def test_memory_tier_copies_on_put_and_on_get(tmp_path):
     be.close()
 
 
+@pytest.mark.parametrize("lower", [False, True], ids=["ram", "ram+local"])
+def test_memory_tier_keeps_an_owned_full_uncopied(tmp_path, lower):
+    """``put_owned``: the caller hands its host arrays over (as LowDiff
+    hands over a full's snapshot), and the tier keeps them uncopied and
+    serves, writes back and evicts them as any blob; ``put`` still
+    copies, and a backend without a RAM tier writes as ``put``."""
+    be = MemoryTierBackend(LocalFSBackend(str(tmp_path)) if lower
+                           else None)
+    c = _content(6)
+    src = _torch_tree(c)
+    be.put_owned("full_00000001", src)
+    _, arrays, _ = be._mem["full_00000001"]
+    assert any(np.shares_memory(a, src["w"].numpy()) for a in arrays)
+    _assert_same(be.get("full_00000001"), _torch_tree(c))
+    be.put("full_00000002", _torch_tree(c))
+    _, arrays, _ = be._mem["full_00000002"]
+    assert not any(np.shares_memory(a, src["w"].numpy()) for a in arrays)
+    if lower:
+        be.flush()
+        _assert_same(be.lower.get("full_00000001"), _torch_tree(c))
+    be.delete("full_00000001")
+    assert not be.exists("full_00000001")
+    be.close()
+    local = LocalFSBackend(str(tmp_path / "plain"))
+    local.put_owned("full_00000003", _torch_tree(c))
+    _assert_same(local.get("full_00000003"), _torch_tree(c))
+
+
+def test_lowdiff_hands_its_full_snapshot_to_the_store(tmp_path,
+                                                      monkeypatch):
+    """LowDiff's full persists through ``put_owned`` (its snapshot's host
+    blocks are private to it), so the RAM tier holds the snapshot's own
+    arrays, and the chain still recovers the trained state bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lowdiff import LowDiff
+    from repro_torch.core.steps import init_state
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models.registry import build_model
+    owned = []
+    real = MemoryTierBackend.put_owned
+    monkeypatch.setattr(MemoryTierBackend, "put_owned",
+                        lambda self, k, o: owned.append(k) or
+                        real(self, k, o))
+    cfg = get_config("gpt2-l").reduced()
+    model = build_model(cfg)
+    store = StoreConfig(tiers=[TierSpec(kind="memory")],
+                        retention_fulls=1).build()
+    strat = LowDiff(model, store, full_interval=2, batch_size=2,
+                    parallel_recovery=False, device="cpu")
+    state = init_state(model, 0, mode="lowdiff", device="cpu")
+    stream = TokenStream(cfg, 16, 2, seed=0, device="cpu")
+    for _ in range(5):
+        state, _ = strat.train_step(state, next(stream))
+    strat.flush()
+    assert owned == ["full_00000002", "full_00000004"]
+    got, applied = strat.recover()
+    assert applied == 1
+    for a, b in zip(rec.tree_leaves(got["params"]),
+                    rec.tree_leaves(state["params"])):
+        assert torch.equal(a, b)
+    strat.close()
+
+
 def _blob(nbytes: int, v: float):
     return {"g": np.full(nbytes // 4, v, np.float32)}
 
