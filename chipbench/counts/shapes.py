@@ -1,10 +1,13 @@
 """Model FLOPs of a training step and the bytes each kernel of LowDiff's
 path needs, from a configuration file's sizes.
 
-Model FLOPs per step = 6 N T + 12 L d S T: N the non-embedding
-parameters a token activates (the output head included, the routed
-experts not picked left out), T the tokens of the step, L the layers, d
-the model width, S the sequence length. Recompute is not counted.
+Model FLOPs per step = 6 N T + attention: N the non-embedding
+parameters a token activates (the output head included; what a token
+leaves idle, such as routed experts it does not pick, left out), T the
+tokens of the step; both terms are the configuration's family's
+(``chipbench/reference/families/``): 12 L d S T for full causal
+attention, L the layers, d the model width, S the sequence length.
+Recompute is not counted.
 
 A kernel's bytes count each input byte read once and each output byte
 written once, in the dtypes the kernel takes on the card:
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import math
 
-from chipbench.reference.decoder import param_shapes
+from chipbench.reference.decoder import family, param_shapes
 from chipbench.reference.optim import BLOCK, k_for
 
 ITEMSIZE = {"float32": 4, "bfloat16": 2}
@@ -33,20 +36,14 @@ def leaves(m: dict):
 
 
 def active_params(m: dict) -> int:
-    """N: every parameter but the input embedding, less the routed
-    experts a token does not pick."""
-    n = sum(math.prod(s) for name, (s, _) in param_shapes(m).items()
-            if name != "embed")
-    if m["family"] == "moe":
-        idle = m["n_experts"] - m["top_k"]
-        n -= m["n_layers"] * idle * 3 * m["d_model"] * m["expert_ff"]
-    return n
+    """N: the parameters a token activates, but the input embedding."""
+    return family(m).active_params(m)
 
 
 def model_flops(m: dict, batch: int, seq: int) -> float:
     T = batch * seq
     return 6.0 * active_params(m) * T \
-        + 12.0 * m["n_layers"] * m["d_model"] * seq * T
+        + family(m).attention_flops(m, seq, T)
 
 
 def _payload_bytes(m: dict, rho: float) -> int:

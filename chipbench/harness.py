@@ -5,6 +5,8 @@ Everything that belongs to one cell is data or a file of its own:
 
 * ``BENCHMARK.json`` names the cell, its configuration and its traffic;
 * ``chipbench/configs/<config>.json``: the sizes as run (``file``);
+  its ``family`` selects the reference's layer, weight layout, counts
+  and program keys, ``chipbench/reference/families/<family>.py``;
 * ``chipbench/traffic/<traffic>.json``: the traffic's parameters; its
   ``kind`` selects the driver ``chipbench/drivers/<kind>.py``;
 * ``chipbench/layer_metrics/<metric>.py``: one reader per per-layer
@@ -72,6 +74,8 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == wl["config"])
     model = _json(os.path.join(root, conf["file"]))
+    model["family_file"] = os.path.join(root, "chipbench", "reference",
+                                        "families", f"{model['family']}.py")
     traffic = _json(os.path.join(root, "chipbench", "traffic",
                                  f"{wl['traffic']}.json"))
     return Cell(root, wl, model, traffic,

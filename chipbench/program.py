@@ -14,9 +14,11 @@ from typing import Dict
 
 import torch
 
-from chipbench.reference.decoder import nest
+from chipbench.reference.decoder import family, nest
 
-#: configuration-file keys and how the program's ``ArchConfig`` holds them
+#: configuration-file keys of every family and how the program's
+#: ``ArchConfig`` holds them; a family adds its own (``PROGRAM_KEYS``:
+#: attribute paths)
 _CFG_KEYS = {
     "n_layers": lambda c: c.n_layers, "d_model": lambda c: c.d_model,
     "n_heads": lambda c: c.n_heads, "n_kv_heads": lambda c: c.n_kv_heads,
@@ -27,20 +29,23 @@ _CFG_KEYS = {
     "compute_dtype": lambda c: c.compute_dtype,
     "grad_accum": lambda c: c.grad_accum,
 }
-_DENSE_KEYS = {"d_ff": lambda c: c.d_ff}
-_MOE_KEYS = {
-    "n_experts": lambda c: c.moe.n_experts, "top_k": lambda c: c.moe.top_k,
-    "n_shared": lambda c: c.moe.n_shared,
-    "expert_ff": lambda c: c.moe.expert_ff,
-    "capacity_factor": lambda c: c.moe.capacity_factor,
-    "router_aux_weight": lambda c: c.moe.router_aux_weight,
-}
+
+
+def _attr(path: str):
+    """A reader of dotted attribute ``path``; tuples read as lists, as a
+    configuration file holds them."""
+    def get(c):
+        for name in path.split("."):
+            c = getattr(c, name)
+        return list(c) if isinstance(c, tuple) else c
+    return get
 
 
 def arch_config(m: dict):
     """The program's configuration of file ``m``: its registry entry with
     ``port_overrides`` applied (a nested dict replaces fields of a nested
-    configuration); raises unless it holds every size the file states."""
+    configuration); raises unless it is of the family's ``ARCH_TYPE``
+    and holds every size the file states."""
     from repro_torch.configs import get_config
     cfg = get_config(m["port_arch"])
     kw = {}
@@ -48,11 +53,13 @@ def arch_config(m: dict):
         kw[k] = (dataclasses.replace(getattr(cfg, k), **v)
                  if isinstance(v, dict) else v)
     cfg = cfg.replace(**kw)
-    want = dict(_CFG_KEYS, **(_MOE_KEYS if m["family"] == "moe"
-                              else _DENSE_KEYS))
-    if (cfg.arch_type == "moe") != (m["family"] == "moe"):
-        raise ValueError(f"{m['name']}: family {m['family']} but the "
-                         f"program's arch_type is {cfg.arch_type}")
+    fam = family(m)
+    want = dict(_CFG_KEYS, **{k: _attr(p)
+                              for k, p in fam.PROGRAM_KEYS.items()})
+    if cfg.arch_type != fam.ARCH_TYPE:
+        raise ValueError(f"{m['name']}: family {m['family']} runs on "
+                         f"arch_type {fam.ARCH_TYPE}, the program's is "
+                         f"{cfg.arch_type}")
     bad = {k: (m[k], get(cfg)) for k, get in want.items()
            if m[k] != get(cfg)}
     if bad:

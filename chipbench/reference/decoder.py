@@ -2,35 +2,48 @@
 
 The yardstick the benchmark holds the program's training step against.
 It imports nothing of the program and takes a configuration file's
-``model`` keys (see ``chipbench/configs``):
+``model`` keys (see ``chipbench/configs``). This file holds what every
+family shares:
 
-* token embedding scaled by sqrt(d), a stack of pre-norm blocks, a final
-  RMSNorm and an untied output head;
-* block: ``h += Attn(RMSNorm(h))``, ``h += FFN(RMSNorm(h))``;
+* token embedding scaled by sqrt(d), a stack of layers, a final RMSNorm
+  and an untied output head;
 * attention: causal multi-head attention with rotary positions (the
-  half-split rotation), scores and softmax in float32;
-* FFN: SwiGLU ``W_d (silu(x W_g) * (x W_u))``; in an MoE layer, a softmax
-  router picks the top-k of E experts per token (ties to the lowest
-  expert), the gates renormalized to sum to 1; each expert takes its
-  assignments in token order up to a capacity C = ceil(T k cf / E)
-  rounded up to a multiple of 8, the rest dropped; shared experts are
-  one SwiGLU of width n_shared * expert_ff added for every token; the
-  Switch load-balance loss E * sum_e(frac_e * mean_prob_e) is added to
-  the cross-entropy with ``router_aux_weight``;
-* loss: mean next-token cross-entropy over float32 logits.
+  half-split rotation), scores and softmax in float32, optionally over
+  a window of the last ``window`` keys;
+* SwiGLU ``W_d (silu(x W_g) * (x W_u))``;
+* routed experts: a softmax router picks the top-k of E experts per
+  token (ties to the lowest expert), the gates optionally renormalized
+  to sum to 1; each expert takes its assignments in token order up to a
+  capacity C = ceil(T k cf / E) rounded up to a multiple of 8, the rest
+  dropped; shared experts are one SwiGLU of width n_shared * expert_ff
+  added for every token; the layer also returns the Switch load-balance
+  term E * sum_e(frac_e * mean_prob_e);
+* loss: mean next-token cross-entropy over float32 logits, plus what the
+  family adds from its layers' aux terms.
+
+A configuration's ``family`` names a file ``families/<family>.py`` beside
+this one (:func:`family`), which imports only ``torch`` and this file and
+gives the family's weight layout (``param_shapes``), its layer
+(``block(lp, h, m, prec, i) -> (h, aux)``, layer ``i``'s slice of the
+stacked ``layers`` leaves, or of what its ``layer_params(params, i)``
+picks), how the aux terms enter the loss (``with_aux``), its counts
+(``active_params``, ``attention_flops``) and the program's keys it must
+match (``ARCH_TYPE``, ``PROGRAM_KEYS``).
 
 Precision follows the configuration: parameters in ``param_dtype``,
 every matmul on inputs rounded to ``compute_dtype`` with float32
 accumulation, norms and softmax in float32, the residual stream in the
 compute dtype. :class:`Precision` with ``fp8=True`` rounds every matmul
 input to float8 e4m3 (per-tensor absmax scaling) instead: the control
-that a comparison has to reject. Each block is recomputed in backward
+that a comparison has to reject. Each layer is recomputed in backward
 (``torch.utils.checkpoint``) so that full-width layers fit beside the
 reference's state.
 """
 from __future__ import annotations
 
+import importlib.util
 import math
+import os
 from typing import Dict, Tuple
 
 import torch
@@ -39,15 +52,42 @@ from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FP8_MAX = 448.0
+#: the families of this checkout: ``<family>.py``
+FAMILIES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "families")
+_loaded: dict = {}
+
+
+def family(m: dict):
+    """The module of configuration ``m``'s family, loaded by file path:
+    ``m["family_file"]`` where the harness set it (the checkout the cell
+    came from), else ``families/<family>.py`` beside this file."""
+    path = m.get("family_file") or os.path.join(FAMILIES,
+                                                f"{m['family']}.py")
+    st = os.stat(path)
+    key = (path, st.st_mtime_ns, st.st_size)
+    if key not in _loaded:
+        spec = importlib.util.spec_from_file_location(
+            "chipbench_family_" + m["family"], path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _loaded[key] = mod
+    return _loaded[key]
 
 
 def param_shapes(m: dict) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     """{dotted leaf name: (shape, init)} in sorted name order; init is
     'normal' (std 1/sqrt(fan-in)), 'embed' (std 0.02) or 'ones'."""
+    return family(m).param_shapes(m)
+
+
+def base_shapes(m: dict) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """The leaves every family here has: the embedding, the final norm,
+    the output head, and each layer's two norms and attention."""
     L, d, V = m["n_layers"], m["d_model"], m["vocab"]
     hd = m["head_dim"]
     H, KV = m["n_heads"], m["n_kv_heads"]
-    s = {
+    return {
         "embed": ((V, d), "embed"),
         "final_norm": ((d,), "ones"),
         "lm_head": ((d, V), "normal"),
@@ -58,25 +98,12 @@ def param_shapes(m: dict) -> Dict[str, Tuple[Tuple[int, ...], str]]:
         "layers.attn.wv": ((L, d, KV * hd), "normal"),
         "layers.attn.wo": ((L, H * hd, d), "normal"),
     }
-    if m["family"] == "moe":
-        E, fe = m["n_experts"], m["expert_ff"]
-        fs = m["n_shared"] * fe
-        s.update({
-            "layers.moe.router": ((L, d, E), "normal"),
-            "layers.moe.we_g": ((L, E, d, fe), "normal"),
-            "layers.moe.we_u": ((L, E, d, fe), "normal"),
-            "layers.moe.we_d": ((L, E, fe, d), "normal"),
-        })
-        if fs:
-            s.update({"layers.moe.ws_g": ((L, d, fs), "normal"),
-                      "layers.moe.ws_u": ((L, d, fs), "normal"),
-                      "layers.moe.ws_d": ((L, fs, d), "normal")})
-    else:
-        f = m["d_ff"]
-        s.update({"layers.ffn.wg": ((L, d, f), "normal"),
-                  "layers.ffn.wu": ((L, d, f), "normal"),
-                  "layers.ffn.wd": ((L, f, d), "normal")})
-    return dict(sorted(s.items()))
+
+
+def non_embed_params(m: dict) -> int:
+    """Every parameter of the family's layout but the input embedding."""
+    return sum(math.prod(s) for name, (s, _) in param_shapes(m).items()
+               if name != "embed")
 
 
 class Precision:
@@ -123,7 +150,8 @@ def rope(x, theta: float):
                      dim=-1).to(x.dtype)
 
 
-def attention(p, x, m, prec: Precision):
+def attention(p, x, m, prec: Precision, window=None):
+    """Query i sees key j iff j <= i and, with a ``window`` w, i - w < j."""
     B, S, d = x.shape
     H, KV, hd = m["n_heads"], m["n_kv_heads"], m["head_dim"]
     q = rope(prec.mm(x, p["wq"]).reshape(B, S, H, hd), m["rope_theta"])
@@ -136,6 +164,8 @@ def attention(p, x, m, prec: Precision):
     s = torch.einsum("bqhd,bkhd->bhqk", prec.cast(q).float(),
                      prec.cast(k).float())
     causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
+    if window:
+        causal = causal & ~torch.ones_like(causal).tril(-window)
     s = s.masked_fill(~causal, float("-inf"))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", prec.cast(w).float(),
@@ -154,8 +184,8 @@ def capacity(T: int, m: dict) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def moe(p, x, m, prec: Precision):
-    """(y (B, S, d), aux) of one MoE layer."""
+def routed_experts(p, x, m, prec: Precision):
+    """(y (B, S, d), aux) of one layer of routed (and shared) experts."""
     B, S, d = x.shape
     E, K = m["n_experts"], m["top_k"]
     T = B * S
@@ -186,33 +216,24 @@ def moe(p, x, m, prec: Precision):
     return y.to(x.dtype).reshape(B, S, d), aux
 
 
-def _block(lp, h, m, prec):
-    x = rms_norm(h, lp["attn_norm"], m["norm_eps"])
-    h = h + attention(lp["attn"], x, m, prec)
-    x = rms_norm(h, lp["ffn_norm"], m["norm_eps"])
-    if m["family"] == "moe":
-        f, aux = moe(lp["moe"], x, m, prec)
-    else:
-        ff = lp["ffn"]
-        f = swiglu(x, ff["wg"], ff["wu"], ff["wd"], prec)
-        aux = torch.zeros((), device=h.device)
-    return h + f, aux
-
-
-def _layer(layers: dict, i: int) -> dict:
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+def layer(layers: dict, i: int) -> dict:
+    """Layer ``i``'s slice of every stacked leaf of ``layers``."""
+    return {k: (layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in layers.items()}
 
 
 def loss(params: dict, tokens, targets, m: dict, prec: Precision):
-    """Mean cross-entropy (+ router_aux_weight * summed aux) of one
-    micro-batch; params is the nested tree."""
+    """Mean cross-entropy of one micro-batch, with the layers' summed aux
+    terms as the family adds them; params is the nested tree."""
+    fam = family(m)
+    pick = getattr(fam, "layer_params",
+                   lambda params, i: layer(params["layers"], i))
     d = m["d_model"]
     h = params["embed"][tokens.long()].to(prec.dtype) \
         * torch.tensor(math.sqrt(d), dtype=prec.dtype)
     aux = torch.zeros((), device=h.device)
     for i in range(m["n_layers"]):
-        h, a = checkpoint(_block, _layer(params["layers"], i), h, m, prec,
+        h, a = checkpoint(fam.block, pick(params, i), h, m, prec, i,
                           use_reentrant=False)
         aux = aux + a
     h = rms_norm(h, params["final_norm"], m["norm_eps"])
@@ -221,10 +242,7 @@ def loss(params: dict, tokens, targets, m: dict, prec: Precision):
     for b in range(h.shape[0]):      # one sequence's logits at a time
         xent = xent + checkpoint(_xent_sum, h[b], params["lm_head"],
                                  targets[b], prec, use_reentrant=False)
-    out = xent / n
-    if m["family"] == "moe":
-        out = out + m["router_aux_weight"] * aux
-    return out
+    return fam.with_aux(xent / n, aux, m)
 
 
 def _xent_sum(h, w, t, prec):

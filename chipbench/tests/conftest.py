@@ -17,6 +17,8 @@ for p in (ROOT, os.path.join(ROOT, "src")):
 
 import torch  # noqa: E402
 
+from chipbench.reference import decoder  # noqa: E402
+
 #: tiny sizes of each configuration family; the program gets the same
 #: sizes through ``port_overrides``
 TINY = {
@@ -46,19 +48,29 @@ def pytest_configure(config):
         "markers", "card: needs an NVIDIA card; skips without one")
 
 
-def _tiny_config(family: str) -> dict:
-    base, over, extra = TINY[family]
+def _tiny_config(family: str, tiny=TINY, families=None) -> dict:
+    """The tiny configuration of ``family`` (sizes from ``tiny``); the
+    family's own keys reach the program through its ``PROGRAM_KEYS``
+    attribute paths, ``"moe.n_experts"`` as ``{"moe": {"n_experts"}}``.
+    ``families``: the directory of the family's file, if not the
+    benchmark's own."""
+    base, over, extra = tiny[family]
     with open(os.path.join(ROOT, "chipbench", "configs", f"{base}.json"),
               encoding="utf-8") as f:
         conf = json.load(f)
-    port = dict(over)
-    if family == "moe":
-        port["moe"] = {"n_experts": extra["n_experts"],
-                       "top_k": extra["top_k"],
-                       "n_shared": extra["n_shared"],
-                       "expert_ff": extra["expert_ff"]}
     conf.update(over, **extra)
-    conf.update(name=f"tiny-{family}", port_overrides=port)
+    conf.update(name=f"tiny-{family}", family=family)
+    fam = decoder.family(dict(conf, family_file=families and os.path.join(
+        families, f"{family}.py")))
+    port = dict(over)
+    for k, path in fam.PROGRAM_KEYS.items():
+        if k in extra:
+            *outer, last = path.split(".")
+            node = port
+            for name in outer:
+                node = node.setdefault(name, {})
+            node[last] = extra[k]
+    conf["port_overrides"] = port
     return conf
 
 
@@ -74,17 +86,22 @@ def _tiny_traffic(name: str) -> dict:
     return t
 
 
-def add_cells(root: str, cells=CELLS, limit: float = TINY_LIMIT) -> dict:
+def add_cells(root: str, cells=CELLS, limit: float = TINY_LIMIT,
+              tiny=TINY, families=()) -> dict:
     """Copy the benchmark under ``root`` and add ``cells`` as new files
-    and new entries only; returns the new BENCHMARK.json."""
+    and new entries only (``families``: family files to add); returns
+    the new BENCHMARK.json."""
     shutil.copytree(os.path.join(ROOT, "chipbench"),
                     os.path.join(root, "chipbench"),
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    fams = os.path.join(root, "chipbench", "reference", "families")
+    for path in families:
+        shutil.copy(path, fams)
     with open(os.path.join(ROOT, "BENCHMARK.json"), encoding="utf-8") as f:
         bench = json.load(f)
     d = os.path.join(root, "chipbench")
     for family in {f for f, _ in cells.values()}:
-        conf = _tiny_config(family)
+        conf = _tiny_config(family, tiny, fams)
         path = f"chipbench/configs/{conf['name']}.json"
         with open(os.path.join(root, path), "w", encoding="utf-8") as f:
             json.dump(conf, f)

@@ -59,3 +59,48 @@ def test_wire_bytes_of_a_differential():
     nb = sum(-(-n // BLOCK) for n in shapes.leaves(m))
     assert nb == 1_047_336
     assert nb * k_for(0.01) * (4 + 2) == 69_124_176
+
+
+#: the weight layouts the two configurations' families give, pinned:
+#: every name, shape and init, in order
+LAYOUTS = {
+    "gpt2-l": {
+        "embed": ((50257, 1280), "embed"),
+        "final_norm": ((1280,), "ones"),
+        "layers.attn.wk": ((36, 1280, 1280), "normal"),
+        "layers.attn.wo": ((36, 1280, 1280), "normal"),
+        "layers.attn.wq": ((36, 1280, 1280), "normal"),
+        "layers.attn.wv": ((36, 1280, 1280), "normal"),
+        "layers.attn_norm": ((36, 1280), "ones"),
+        "layers.ffn.wd": ((36, 5120, 1280), "normal"),
+        "layers.ffn.wg": ((36, 1280, 5120), "normal"),
+        "layers.ffn.wu": ((36, 1280, 5120), "normal"),
+        "layers.ffn_norm": ((36, 1280), "ones"),
+        "lm_head": ((1280, 50257), "normal"),
+    },
+    "deepseek-moe-16b-l2": {
+        "embed": ((102400, 2048), "embed"),
+        "final_norm": ((2048,), "ones"),
+        "layers.attn.wk": ((2, 2048, 2048), "normal"),
+        "layers.attn.wo": ((2, 2048, 2048), "normal"),
+        "layers.attn.wq": ((2, 2048, 2048), "normal"),
+        "layers.attn.wv": ((2, 2048, 2048), "normal"),
+        "layers.attn_norm": ((2, 2048), "ones"),
+        "layers.ffn_norm": ((2, 2048), "ones"),
+        "layers.moe.router": ((2, 2048, 64), "normal"),
+        "layers.moe.we_d": ((2, 64, 1408, 2048), "normal"),
+        "layers.moe.we_g": ((2, 64, 2048, 1408), "normal"),
+        "layers.moe.we_u": ((2, 64, 2048, 1408), "normal"),
+        "layers.moe.ws_d": ((2, 2816, 2048), "normal"),
+        "layers.moe.ws_g": ((2, 2048, 2816), "normal"),
+        "layers.moe.ws_u": ((2, 2048, 2816), "normal"),
+        "lm_head": ((2048, 102400), "normal"),
+    },
+}
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_weight_layout_pinned(name):
+    from chipbench.reference import decoder
+    got = decoder.param_shapes(_conf(name))
+    assert list(got.items()) == list(LAYOUTS[name].items())
