@@ -1,5 +1,6 @@
 """Config registry: ``get_config(arch_id)`` for every architecture of
-the reference's registry + the assigned input shapes."""
+the reference's registry, the port's own (``PORT_ONLY``) + the assigned
+input shapes."""
 from __future__ import annotations
 
 import importlib
@@ -19,9 +20,14 @@ _REGISTRY = {
     "hymba-1.5b": "hymba_1_5b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "gpt2-l": "gpt2_l",
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
-ASSIGNED_ARCHS = tuple(k for k in _REGISTRY if k != "gpt2-l")
+#: entries the reference's registry lacks (mechanisms only the port has)
+PORT_ONLY = ("deepseek-v2-lite",)
+
+ASSIGNED_ARCHS = tuple(k for k in _REGISTRY
+                       if k != "gpt2-l" and k not in PORT_ONLY)
 
 
 def get_config(arch_id: str) -> ArchConfig:

@@ -29,6 +29,16 @@ class MoEConfig:
     expert_ff: int = 0            # per-expert FFN hidden dim
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01  # load-balance loss weight
+    # port-only: False keeps the top-k softmax gates as they are (their
+    # sum under 1); the reference always renormalises them
+    norm_topk: bool = True
+    # port-only: this card's share of the routed experts, 0..held-1
+    # (0 = all of them); the router and the capacity still count all
+    # ``n_experts``
+    held_experts: int = 0
+
+    def held(self) -> int:
+        return self.held_experts or self.n_experts
 
 
 @dataclass(frozen=True)
@@ -37,6 +47,36 @@ class SSMConfig:
     conv_width: int = 4
     expand: int = 2               # d_inner = expand * d_model
     chunk: int = 128              # chunkwise-scan chunk length
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2 §2.1) without a query
+    compression: keys and values come from one latent of width
+    ``kv_lora_rank`` per token; each head's query and key are a part
+    without position (``qk_nope_head_dim``) and a rotated part
+    (``qk_rope_head_dim``, one key head shared by every head)."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    def qk_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
+class YarnScaling:
+    """YaRN rotary scaling (Peng et al. 2023, as DeepSeek-V2 sets it):
+    frequencies past the correction range divided by ``factor``, a linear
+    ramp between, and the attention scale multiplied by the square of
+    ``0.1 * mscale_all_dim * ln(factor) + 1``."""
+    factor: float = 40.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
 
 
 @dataclass(frozen=True)
@@ -65,6 +105,14 @@ class ArchConfig:
 
     moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
+
+    # port-only (the reference has none of these): latent attention in
+    # place of GQA, YaRN rotary scaling, and leading layers whose FFN is
+    # a dense SwiGLU of width ``d_ff`` in an MoE model (their leaves are
+    # the ``dense_layers`` stack)
+    mla: Optional[MLAConfig] = None
+    rope_scaling: Optional[YarnScaling] = None
+    first_dense_layers: int = 0
 
     # encoder-decoder (audio backbone): n_layers is the decoder depth.
     n_encoder_layers: int = 0
@@ -121,7 +169,14 @@ class ArchConfig:
             moe = dataclasses.replace(
                 moe, n_experts=4, top_k=k,
                 n_shared=min(1, moe.n_shared), expert_ff=max(64, d // 2),
-                capacity_factor=4.0 / k + 0.5)
+                capacity_factor=4.0 / k + 0.5,
+                held_experts=(max(1, 4 * moe.held_experts // moe.n_experts)
+                              if moe.held_experts else 0))
+        mla = self.mla and dataclasses.replace(
+            self.mla, kv_lora_rank=min(self.mla.kv_lora_rank, 64),
+            qk_nope_head_dim=min(self.mla.qk_nope_head_dim, 32),
+            qk_rope_head_dim=min(self.mla.qk_rope_head_dim, 16),
+            v_head_dim=min(self.mla.v_head_dim, 32))
         return self.replace(
             n_layers=2, d_model=d, n_heads=heads, n_kv_heads=kv,
             d_ff=min(self.d_ff, 4 * d) if self.d_ff else 0,
@@ -134,16 +189,29 @@ class ArchConfig:
             ssm=dataclasses.replace(self.ssm, chunk=16),
             param_dtype="float32", compute_dtype="float32",
             grad_accum=1, loss_chunk=64,
+            mla=mla, first_dense_layers=min(self.first_dense_layers, 1),
         )
 
     # ---- simple parameter counting (used by roofline MODEL_FLOPS) ----
+    def attn_param_count(self) -> int:
+        """One layer's attention mixer (no biases)."""
+        d, H = self.d_model, self.n_heads
+        if self.mla is not None:
+            a = self.mla
+            return (d * H * a.qk_dim()
+                    + d * (a.kv_lora_rank + a.qk_rope_head_dim)
+                    + a.kv_lora_rank
+                    + a.kv_lora_rank * H * (a.qk_nope_head_dim + a.v_head_dim)
+                    + H * a.v_head_dim * d)
+        hd = self.hd()
+        qkv = d * (H * hd) + 2 * d * (self.n_kv_heads * hd)
+        return qkv + H * hd * d
+
     def param_count(self) -> int:
-        d, hd = self.d_model, self.hd()
-        qkv = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
-        o = self.n_heads * hd * d
-        attn = qkv + o
+        d = self.d_model
+        attn = self.attn_param_count()
         if self.arch_type == "moe":
-            ff = 3 * d * self.moe.expert_ff * (self.moe.n_experts + self.moe.n_shared)
+            ff = 3 * d * self.moe.expert_ff * (self.moe.held() + self.moe.n_shared)
             ff += d * self.moe.n_experts  # router
         elif self.arch_type == "ssm":
             di = self.ssm.expand * d
@@ -157,6 +225,8 @@ class ArchConfig:
         per_layer = attn + ff + 2 * d
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         n = self.n_layers * per_layer + emb + d
+        # leading layers with a dense SwiGLU in place of the experts
+        n += self.first_dense_layers * (3 * d * self.d_ff - ff)
         if self.n_encoder_layers:
             n += self.n_encoder_layers * (attn + 3 * d * self.d_ff + 2 * d)
             n += self.n_layers * (attn + 2 * d)  # cross-attention
@@ -165,13 +235,34 @@ class ArchConfig:
         return n
 
     def active_param_count(self) -> int:
-        """Params touched per token (MoE: only routed top-k + shared)."""
+        """Params touched per token (MoE: only routed top-k + shared; of
+        held experts, the expected top_k * held / n_experts)."""
         if self.arch_type != "moe":
             return self.param_count()
         d = self.d_model
         m = self.moe
-        dense_like = self.param_count() - self.n_layers * 3 * d * m.expert_ff * m.n_experts
-        return dense_like + self.n_layers * 3 * d * m.expert_ff * m.top_k
+        L = self.n_layers - self.first_dense_layers
+        dense_like = self.param_count() - L * 3 * d * m.expert_ff * m.held()
+        return dense_like + L * 3 * d * m.expert_ff * m.top_k * m.held() \
+            // m.n_experts
+
+
+#: the port-only fields of ``ArchConfig`` and of its ``MoEConfig``, with
+#: the values at which the port computes what the reference computes
+PORT_FIELDS = {"mla": None, "rope_scaling": None, "first_dense_layers": 0}
+PORT_MOE_FIELDS = {"norm_topk": True, "held_experts": 0}
+
+
+def reference_fields(cfg: ArchConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` in the reference's terms: the port-only
+    fields left out where they hold those values, and kept otherwise, so
+    that such a config never equals one of the reference's."""
+    out = dataclasses.asdict(cfg)
+    for fields, d in ((PORT_FIELDS, out), (PORT_MOE_FIELDS, out["moe"])):
+        for k, v in fields.items():
+            if d[k] == v:
+                del d[k]
+    return out
 
 
 @dataclass(frozen=True)

@@ -67,8 +67,9 @@ def init_state(model, seed: int = 0, *, mode: str = "lowdiff",
 
 
 #: top-level subtrees whose leaves are stacked per layer (a leading L
-#: dim): the decoder stack, and the encoder-decoder's two stacks
-STACKED = ("layers", "enc_layers", "dec_layers")
+#: dim): the decoder stack, its leading dense layers, and the
+#: encoder-decoder's two stacks
+STACKED = ("layers", "dense_layers", "enc_layers", "dec_layers")
 
 
 def _differentiable(params):

@@ -4,6 +4,11 @@ ssm), the port of ``repro.models.lm``: train/prefill and cached decode.
 Parameters are the reference's stacked tree — every per-layer leaf has
 a leading ``(L, …)`` dim under ``params["layers"]`` (xLSTM: ``L/2``
 (mLSTM, sLSTM) pairs) — so frame leaf names and block layouts match.
+An MoE model with ``cfg.first_dense_layers`` leading dense layers (a
+port-only option) holds those under a second stack, ``dense_layers``,
+and the MoE layers after them under ``layers``; ``cfg.mla`` makes every
+layer's mixer multi-head latent attention (``models/mla.py``), which
+has no decode path.
 The reference's ``lax.scan`` over layers is a Python loop over that
 dim, and its per-layer ``jax.checkpoint`` is ``torch.utils.checkpoint``
 (``cfg.remat``). Hybrid (Hymba) layers take their attention window from
@@ -25,7 +30,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch import tree_leaves
-from repro_torch.models import blocks, linear_attn as la, moe as moe_lib
+from repro_torch.models import blocks, linear_attn as la, mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ops, xlstm
 from repro_torch.models.param import ParamSpec
 
@@ -34,8 +40,11 @@ from repro_torch.models.param import ParamSpec
 # Specs
 # --------------------------------------------------------------------------
 
-def layer_specs(cfg: ArchConfig, layers: Optional[int] = None) -> dict:
-    L = layers if layers is not None else cfg.n_layers
+def layer_specs(cfg: ArchConfig, layers: Optional[int] = None,
+                dense: bool = False) -> dict:
+    """The stacked leaves of ``layers`` layers (default: the ``layers``
+    stack's); ``dense``: the leading dense layers' stack."""
+    L = layers if layers is not None else cfg.n_layers - cfg.first_dense_layers
     t = cfg.arch_type
     if t == "ssm":  # xLSTM: (mLSTM, sLSTM) pairs
         assert cfg.slstm_every == 2 and L % 2 == 0
@@ -43,10 +52,11 @@ def layer_specs(cfg: ArchConfig, layers: Optional[int] = None) -> dict:
                 "slstm": xlstm.slstm_specs(cfg, L // 2)}
     specs = {
         "attn_norm": ParamSpec((L, cfg.d_model), ("layers", "embed"), init="ones"),
-        "attn": blocks.attention_specs(cfg, L),
+        "attn": (mla_lib.mla_specs(cfg, L) if cfg.mla is not None
+                 else blocks.attention_specs(cfg, L)),
         "ffn_norm": ParamSpec((L, cfg.d_model), ("layers", "embed"), init="ones"),
     }
-    if t == "moe":
+    if t == "moe" and not dense:
         specs["moe"] = moe_lib.moe_specs(cfg, L)
     else:
         specs["ffn"] = blocks.ffn_specs(cfg, L)
@@ -62,6 +72,9 @@ def param_specs(cfg: ArchConfig) -> dict:
         "final_norm": ParamSpec((d,), ("embed",), init="ones"),
         "layers": layer_specs(cfg),
     }
+    if cfg.first_dense_layers:
+        specs["dense_layers"] = layer_specs(cfg, cfg.first_dense_layers,
+                                            dense=True)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, V), ("embed", "vocab"))
     if cfg.arch_type == "vlm":
@@ -89,14 +102,17 @@ def _std_block(lp, h, cfg: ArchConfig, positions, window: int):
     """One dense/moe/vlm/hybrid block. Returns (h, aux); aux is the MoE
     router's loss, None for the other families."""
     x = ops.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    attn_out = blocks.attention_apply(lp["attn"], x, cfg,
-                                      positions=positions, window=window)
+    if cfg.mla is not None:
+        attn_out = mla_lib.mla_apply(lp["attn"], x, cfg, positions=positions)
+    else:
+        attn_out = blocks.attention_apply(lp["attn"], x, cfg,
+                                          positions=positions, window=window)
     if cfg.arch_type == "hybrid":
         m_out = blocks.mamba_apply(lp["mamba"], x, cfg)
         attn_out = 0.5 * (attn_out + m_out)
     h = h + attn_out
     x = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-    if cfg.arch_type == "moe":
+    if "moe" in lp:
         f_out, aux = moe_lib.moe_apply(lp["moe"], x, cfg)
     else:
         f_out, aux = blocks.ffn_apply(lp["ffn"], x), None
@@ -112,6 +128,15 @@ def _layer(layers, i: int):
     """Slice layer ``i`` out of the stacked per-layer tree."""
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in layers.items()}
+
+
+def layer_params(params, cfg: ArchConfig, i: int):
+    """Layer ``i``'s weights: from ``dense_layers`` for the leading dense
+    layers, else from ``layers``."""
+    n = cfg.first_dense_layers
+    if i < n:
+        return _layer(params["dense_layers"], i)
+    return _layer(params["layers"], i - n)
 
 
 def _run(fn, cfg: ArchConfig, *args):
@@ -131,7 +156,7 @@ def stack_apply(params, h, cfg: ArchConfig, positions):
     else:
         windows = layer_windows(cfg).tolist()
         for i in range(cfg.n_layers):
-            h, a = _run(_std_block, cfg, _layer(params["layers"], i), h,
+            h, a = _run(_std_block, cfg, layer_params(params, cfg, i), h,
                         cfg, positions, int(windows[i]))
             if a is not None:
                 aux.append(a)
@@ -216,10 +241,18 @@ def la_state(mk, s_shape, n_shape, m_shape) -> la.LinState:
                        mk(m_shape, torch.float32))
 
 
+def _no_mla_decode(cfg: ArchConfig) -> None:
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: decode of multi-head latent attention (MLA) is "
+            "not ported: no latent cache; train and prefill only")
+
+
 def init_cache(cfg: ArchConfig, B: int, seq_len: int, device=None):
     """Zero caches for ``B`` requests of up to ``seq_len`` tokens, the
     reference's tree: k/v (L, B, Lc, KV, hd) in the compute dtype, the
     recurrent states in f32."""
+    _no_mla_decode(cfg)
     Lc = cache_len(cfg, seq_len)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd()
 
@@ -293,7 +326,7 @@ def decode_block(lp, h, cfg: ArchConfig, ck, cv, pos, *, window: int = 0,
         a_out = 0.5 * (a_out + m_out)
     h = h + a_out
     x = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-    if cfg.arch_type == "moe":
+    if "moe" in lp:
         f_out, _ = moe_lib.moe_apply(lp["moe"], x, cfg)
     else:
         f_out = blocks.ffn_apply(lp["ffn"], x)
@@ -319,6 +352,7 @@ def decode_step(params, cache: DecodeCache, batch, cfg: ArchConfig,
     """One-token decode. batch: {"tokens": (B,1), "pos": ()} ->
     (logits (B, V) f32, cache). The cache's tensors are updated in place
     and returned in a new ``DecodeCache``."""
+    _no_mla_decode(cfg)
     h = embed_decode(params, batch, cfg)
     pos = torch.as_tensor(batch["pos"], device=h.device)
     Lc = cache_len(cfg, seq_len)
@@ -338,7 +372,7 @@ def decode_step(params, cache: DecodeCache, batch, cfg: ArchConfig,
         windows = layer_windows(cfg).tolist()
         for i in range(cfg.n_layers):
             mam = cache_slice(cache.mamba, i) if hybrid else None
-            h, _, _, mam = decode_block(_layer(layers, i), h, cfg,
+            h, _, _, mam = decode_block(layer_params(params, cfg, i), h, cfg,
                                         cache.k[i], cache.v[i], pos,
                                         window=int(windows[i]), ring=ring,
                                         mam=mam)

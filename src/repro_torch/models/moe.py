@@ -10,6 +10,15 @@ run as one batched matmul over ``(E, C, d)``. DeepSeekMoE-style shared
 experts are dense SwiGLU paths added on top. On a live mesh with a
 ``model`` axis, :func:`moe_apply` takes the expert-parallel path
 (:func:`_moe_apply_ep`) where the reference does.
+
+Two port-only options (``MoEConfig``): ``norm_topk=False`` keeps the
+top-k softmax gates as they are, and ``held_experts`` makes the layer
+this card's share of an expert-parallel deployment: it holds experts
+``[0, held)`` only, routes over all ``n_experts`` with the capacity of
+all of them, and computes the part of the result its own experts give
+(the local half of the EP path's masking, without the exchange). The
+router, the slotting and the scatter into the expert buffers are one
+``moe.route`` span when tracing is on.
 """
 from __future__ import annotations
 
@@ -20,19 +29,21 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.param import ParamSpec
+from repro_torch.obs.trace import trace_span
 
 
 def moe_specs(cfg: ArchConfig, layers: int) -> dict:
     d = cfg.d_model
     m = cfg.moe
     L = (layers,)
+    n = m.held()
     specs = {
         "router": ParamSpec(L + (d, m.n_experts), ("layers", "fsdp", "experts")),
-        "we_g": ParamSpec(L + (m.n_experts, d, m.expert_ff),
+        "we_g": ParamSpec(L + (n, d, m.expert_ff),
                           ("layers", "experts", "fsdp", "expert_mlp")),
-        "we_u": ParamSpec(L + (m.n_experts, d, m.expert_ff),
+        "we_u": ParamSpec(L + (n, d, m.expert_ff),
                           ("layers", "experts", "fsdp", "expert_mlp")),
-        "we_d": ParamSpec(L + (m.n_experts, m.expert_ff, d),
+        "we_d": ParamSpec(L + (n, m.expert_ff, d),
                           ("layers", "experts", "expert_mlp", "fsdp")),
     }
     if m.n_shared:
@@ -78,47 +89,60 @@ def moe_apply(p, x, cfg: ArchConfig):
         dp = math.prod(sizes[a] for a in ("pod", "data") if a in sizes)
         T = x.shape[0] * x.shape[1] * dp
         if ep > 1 and cfg.moe.n_experts % ep == 0 \
+                and cfg.moe.held() == cfg.moe.n_experts \
                 and T >= 16 * cfg.moe.n_experts:
             return _moe_apply_ep(p, x, cfg, ctx, ep)
     return _moe_apply_dense(p, x, cfg)
 
 
 def _gates(router, xf, cfg: ArchConfig):
-    """Router of ``T`` tokens ``xf`` (T, d): (gate (T,K) f32 normalised,
-    eid (T,K), the (T,K,E) one-hot of eid, aux)."""
+    """Router of ``T`` tokens ``xf`` (T, d): (gate (T,K) f32, normalised
+    to sum to 1 unless ``norm_topk`` is off, eid (T,K), aux)."""
     m = cfg.moe
     E, K = m.n_experts, m.top_k
     T = xf.shape[0]
     logits = torch.matmul(xf, router.to(xf.dtype))
     probs = torch.softmax(logits.float(), dim=-1)                 # (T,E)
     gate, eid = top_k(probs, K)                                   # (T,K)
-    gate = gate / torch.maximum(gate.sum(-1, keepdim=True),
-                                gate.new_tensor(1e-9))
+    if m.norm_topk:
+        gate = gate / torch.maximum(gate.sum(-1, keepdim=True),
+                                    gate.new_tensor(1e-9))
 
     # Load-balance auxiliary loss (Switch): E * mean_e(frac_e * prob_e)
     oh = F.one_hot(eid, E).float()                                # (T,K,E)
     frac = oh.sum(dim=(0, 1)) / (T * K)
     aux = E * torch.sum(frac * probs.mean(dim=0))
-    return gate, eid, oh, aux
+    return gate, eid, aux
+
+
+def _dispatch_plan(eid, first: int, n: int, C: int):
+    """The dispatch plan of the assignments ``eid`` (T,K) to the ``n``
+    experts ``[first, first + n)``: (dest (T·K,), valid (T·K,)). An
+    assignment's slot is its expert's (relative to ``first``) times
+    ``C`` plus its position among the assignments to that expert, in
+    token order; the assignments to other experts and those past ``C``
+    go to the drop slot ``n·C``."""
+    T, K = eid.shape
+    rel = eid - first                                             # (T,K)
+    mine = (rel >= 0) & (rel < n)
+    # position among the assignments to my group (others masked out)
+    oh_loc = torch.where(mine[..., None],
+                         F.one_hot(rel.clamp(0, n - 1), n).float(),
+                         0.0).reshape(T * K, n)
+    pos = torch.cumsum(oh_loc, dim=0) - oh_loc
+    pos_in_e = (pos * oh_loc).sum(dim=-1).to(torch.int64)
+    valid = mine.reshape(T * K) & (pos_in_e < C)
+    dest = torch.where(valid, rel.reshape(T * K).clamp(0, n - 1) * C
+                       + pos_in_e, torch.full_like(pos_in_e, n * C))
+    return dest, valid
 
 
 def route(p, xf, cfg: ArchConfig, C: int):
     """The router and the dispatch plan of ``T`` tokens ``xf`` (T, d):
-    (gate (T,K) f32, eid (T,K), dest (T·K,) slot in ``E·C + 1``, valid
-    (T·K,), aux)."""
-    m = cfg.moe
-    E, K = m.n_experts, m.top_k
-    T = xf.shape[0]
-    gate, eid, oh, aux = _gates(p["router"], xf, cfg)
-
-    # position-in-expert: exclusive cumsum over flattened (T*K) assignments
-    oh_flat = oh.reshape(T * K, E)
-    pos = torch.cumsum(oh_flat, dim=0) - oh_flat
-    pos_in_e = (pos * oh_flat).sum(dim=-1).to(torch.int64)
-    eid_flat = eid.reshape(T * K)
-    valid = pos_in_e < C
-    dest = torch.where(valid, eid_flat * C + pos_in_e,
-                       torch.full_like(eid_flat, E * C))          # drop slot
+    (gate (T,K) f32, eid (T,K), dest (T·K,) slot in ``n·C + 1``, valid
+    (T·K,), aux), for the ``n`` experts the layer holds."""
+    gate, eid, aux = _gates(p["router"], xf, cfg)
+    dest, valid = _dispatch_plan(eid, 0, cfg.moe.held(), C)
     return gate, eid, dest, valid, aux
 
 
@@ -126,23 +150,25 @@ def _moe_apply_dense(p, x, cfg: ArchConfig):
     """Reference dispatch (single device)."""
     B, S, d = x.shape
     m = cfg.moe
-    E, K = m.n_experts, m.top_k
+    n, K = m.held(), m.top_k
     T = B * S
     C = capacity(T, cfg)
     xf = x.reshape(T, d)
-    gate, _, dest, valid, aux = route(p, xf, cfg, C)
+    with trace_span("moe.route", "model", device=True, assignments=T * K,
+                    slots=n * C):
+        gate, _, dest, valid, aux = route(p, xf, cfg, C)
+        xe = _dispatch(xf, dest, n, C, K)
 
-    y = _experts(xf, gate, dest, valid, p["we_g"], p["we_u"], p["we_d"],
-                 E, C, K)
+    y = _experts(xe, gate, dest, valid, p["we_g"], p["we_u"], p["we_d"], K)
     if m.n_shared:
         y = y + _shared_expert(p, xf, x.dtype)
     return y.reshape(B, S, d), aux
 
 
-def _experts(xf, gate, dest, valid, wg, wu, wd, E: int, C: int, K: int):
-    """Dispatch ``T`` tokens to the slots ``dest`` of ``E`` experts of
-    capacity ``C`` (slot ``E·C`` drops), run the experts, and combine
-    their outputs by the gates of the valid assignments: (T, d)."""
+def _dispatch(xf, dest, E: int, C: int, K: int):
+    """The (E, C, d) buffers of ``E`` experts of capacity ``C``: the
+    ``T`` tokens ``xf`` scattered to their slots ``dest`` (slot ``E·C``
+    drops)."""
     T, d = xf.shape
     # scatter per k-slot: within one slot the destinations are distinct
     # except the drop slot, whose row is thrown away
@@ -150,19 +176,25 @@ def _experts(xf, gate, dest, valid, wg, wu, wd, E: int, C: int, K: int):
     buf = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
     for kk in range(K):
         buf = buf.index_add(0, dest_k[:, kk], xf)
-    xe = buf[:E * C].reshape(E, C, d)
+    return buf[:E * C].reshape(E, C, d)
 
-    g = torch.bmm(xe, wg.to(xf.dtype))
-    u = torch.bmm(xe, wu.to(xf.dtype))
-    h = F.silu(g.float()).to(xf.dtype) * u
-    ye = torch.bmm(h, wd.to(xf.dtype))
+
+def _experts(xe, gate, dest, valid, wg, wu, wd, K: int):
+    """Run the experts on their buffers ``xe`` (E, C, d) and combine
+    their outputs by the gates of the valid assignments: (T, d)."""
+    E, C, d = xe.shape
+    T, dt = gate.shape[0], xe.dtype
+    g = torch.bmm(xe, wg.to(dt))
+    u = torch.bmm(xe, wu.to(dt))
+    h = F.silu(g.float()).to(dt) * u
+    ye = torch.bmm(h, wd.to(dt))
 
     y_flat = torch.cat([ye.reshape(E * C, d),
-                        torch.zeros((1, d), dtype=xf.dtype, device=xf.device)])
-    valid_k = valid.reshape(T, K)
-    y = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
+                        torch.zeros((1, d), dtype=dt, device=xe.device)])
+    dest_k, valid_k = dest.reshape(T, K), valid.reshape(T, K)
+    y = torch.zeros((T, d), dtype=dt, device=xe.device)
     for kk in range(K):
-        w = (gate[:, kk] * valid_k[:, kk]).to(xf.dtype)[:, None]
+        w = (gate[:, kk] * valid_k[:, kk]).to(dt)[:, None]
         y = y + y_flat[dest_k[:, kk]] * w
     return y
 
@@ -217,20 +249,10 @@ def _moe_apply_ep(p, x, cfg: ArchConfig, ctx, ep: int):
     else:
         xl = col.copy_to(x, mg)
     xf = xl.reshape(T, d)
-    gate, eid, _, aux = _gates(router, xf, cfg)
-
-    rel = eid - rank * E_loc                                      # (T,K)
-    mine = (rel >= 0) & (rel < E_loc)
-    # position among the assignments to my group (others masked out)
-    oh_loc = torch.where(mine[..., None],
-                         F.one_hot(rel.clamp(0, E_loc - 1), E_loc).float(),
-                         0.0).reshape(T * K, E_loc)
-    pos = torch.cumsum(oh_loc, dim=0) - oh_loc
-    pos_in_e = (pos * oh_loc).sum(dim=-1).to(torch.int64)
-    valid = mine.reshape(T * K) & (pos_in_e < C)
-    dest = torch.where(valid, rel.reshape(T * K).clamp(0, E_loc - 1) * C
-                       + pos_in_e, torch.full_like(pos_in_e, E_loc * C))
-    y = _experts(xf, gate, dest, valid, wg, wu, wd, E_loc, C, K)
+    gate, eid, aux = _gates(router, xf, cfg)
+    dest, valid = _dispatch_plan(eid, rank * E_loc, E_loc, C)
+    y = _experts(_dispatch(xf, dest, E_loc, C, K), gate, dest, valid,
+                 wg, wu, wd, K)
     y = y.reshape(B, S, d)
     if seq_shard:
         y = col.gather_from(col.reduce_scatter_dim(y, 1, mg), 1, mg)

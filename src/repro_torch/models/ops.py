@@ -46,30 +46,76 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)                       # (hd/2,)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude factor ``0.1 * mscale * ln(factor) + 1`` (1 for
+    ``factor`` <= 1)."""
+    if factor <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(dim: int, theta: float, s, device=None):
+    """YaRN's inverse frequencies (dim/2,) of ``s`` (``YarnScaling``), as
+    DeepSeek-V2 computes them: pair i keeps ``theta^(-2i/dim)`` below the
+    correction range ``[lo, hi]`` (the pairs that turn ``beta_fast`` and
+    ``beta_slow`` times over the original context, floored and ceiled),
+    takes it divided by ``factor`` above it, and a linear ramp of the two
+    between."""
+    def corr(rotations):
+        return dim * math.log(s.original_max_position
+                              / (rotations * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    lo = max(math.floor(corr(s.beta_fast)), 0)
+    hi = min(math.ceil(corr(s.beta_slow)), dim - 1)
+    if lo == hi:
+        hi += 0.001
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (theta ** exps)
+    inter = 1.0 / (s.factor * theta ** exps)
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - lo) / (hi - lo), 0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def apply_rope(x, positions, theta: float, scaling=None):
+    """x: (..., S, H, D); positions: broadcastable to (..., S).
+    ``scaling``: a ``YarnScaling``, whose frequencies (:func:`yarn_freqs`)
+    replace the plain ones and whose ``mscale / mscale_all_dim`` ratio
+    multiplies cos and sin."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)
+    if scaling is None:
+        freqs = rope_freqs(hd, theta, x.device)
+    else:
+        freqs = yarn_freqs(hd, theta, scaling, x.device)
     ang = positions[..., None].float() * freqs          # (...,S,hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    if scaling is not None:
+        a = yarn_mscale(scaling.factor, scaling.mscale) \
+            / yarn_mscale(scaling.factor, scaling.mscale_all_dim)
+        cos, sin = cos * a, sin * a
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 
-def attention(q, k, v, *, causal=True, window=0):
+def attention(q, k, v, *, causal=True, window=0, scale=None):
     """Causal GQA attention with an f32 masked softmax.
 
-    q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0. The
-    reference's online softmax over one score tile (its tiles are 512 x
-    1024, so every sequence up to 512 is one tile) in plain ops: scores
-    in f32, masked to NEG_INF, un-normalized probabilities cast to v's
-    dtype for the value product, normalized by their f32 sum last.
+    q: (B, Sq, H, D); k: (B, Sk, KV, D), v: (B, Sk, KV, Dv) with H % KV
+    == 0. The reference's online softmax over one score tile (its tiles
+    are 512 x 1024, so every sequence up to 512 is one tile) in plain
+    ops: q scaled by ``scale`` (default ``1/sqrt(D)``) rounded to its
+    dtype, scores in f32, masked to NEG_INF, un-normalized probabilities
+    cast to v's dtype for the value product, normalized by their f32 sum
+    last. Returns (B, Sq, H, Dv).
     """
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qr = (q * as_dtype(1.0 / D ** 0.5, q.dtype)).reshape(B, Sq, KV, G, D)
+    if scale is None:
+        scale = 1.0 / D ** 0.5
+    qr = (q * as_dtype(scale, q.dtype)).reshape(B, Sq, KV, G, D)
     s = torch.einsum("bqkgd,bckd->bqkgc", qr.float(), k.float())
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
@@ -85,7 +131,7 @@ def attention(q, k, v, *, causal=True, window=0):
     l = p.sum(dim=-1)
     acc = torch.einsum("bqkgc,bckd->bqkgd", p.to(v.dtype).float(), v.float())
     out = (acc / torch.clamp(l, min=1e-20)[..., None]).to(q.dtype)
-    return out.reshape(B, Sq, H, D)
+    return out.reshape(B, Sq, H, v.shape[-1])
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):

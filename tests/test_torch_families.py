@@ -23,8 +23,9 @@ from repro.models.lm import layer_windows as jax_windows
 from repro.models.param import materialize
 from repro.models.registry import build_model as jax_model
 from repro_torch import tree_leaves
-from repro_torch.configs import ASSIGNED_ARCHS, _REGISTRY, get_config
-from repro_torch.configs.base import DTYPES
+from repro_torch.configs import (ASSIGNED_ARCHS, PORT_ONLY, _REGISTRY,
+                                 get_config)
+from repro_torch.configs.base import DTYPES, reference_fields
 from repro_torch.core.steps import _differentiable, _grads, _micro
 from repro_torch.data.synthetic import _f64_to, make_batch
 from repro_torch.models import moe
@@ -54,10 +55,14 @@ def _jbatch(batch):
 
 # ---------------------------------------------------------------- configs
 def test_assigned_archs_are_the_references():
-    """``ASSIGNED_ARCHS``: the registry without gpt2-l, in its order
-    (the registry itself: ``test_torch_grad_accum``)."""
+    """``ASSIGNED_ARCHS``: the registry without gpt2-l and the port's own
+    entries (``PORT_ONLY``), in its order (the registry itself:
+    ``test_torch_grad_accum``); the port's own entries build."""
     assert ASSIGNED_ARCHS == JAX_ASSIGNED
-    assert set(ASSIGNED_ARCHS) | {"gpt2-l"} == set(_REGISTRY)
+    assert set(ASSIGNED_ARCHS) | {"gpt2-l"} == set(_REGISTRY) - set(PORT_ONLY)
+    assert not set(PORT_ONLY) & set(JAX_REGISTRY)
+    for a in PORT_ONLY:
+        assert build_model(get_config(a)).n_params() > 0
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -66,7 +71,7 @@ def test_configs_equal(arch, reduced):
     a, b = get_config(arch), jax_config(arch)
     if reduced:
         a, b = a.reduced(), b.reduced()
-    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert reference_fields(a) == dataclasses.asdict(b)
     assert a.param_count() == b.param_count()
     assert a.active_param_count() == b.active_param_count()
     assert str(a.pdtype()).split(".")[-1] == str(b.pdtype())

@@ -16,8 +16,8 @@ from repro.core.steps import init_state as jax_init_state
 from repro.core.steps import make_train_step as jax_make_step
 from repro.models.registry import build_model as jax_model
 from repro_torch import tree_leaves
-from repro_torch.configs import _REGISTRY, get_config
-from repro_torch.configs.base import DTYPES
+from repro_torch.configs import PORT_ONLY, _REGISTRY, get_config
+from repro_torch.configs.base import DTYPES, reference_fields
 from repro_torch.core.steps import _grads, _micro, init_state, make_train_step
 from repro_torch.data.synthetic import make_batch
 from repro_torch.models.param import from_jax_params
@@ -182,19 +182,23 @@ def test_whole_lowdiff_step_matches_reference(arch):
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_new_configs_are_the_reference_dataclasses(arch):
     import dataclasses
-    assert dataclasses.asdict(get_config(arch)) == \
+    assert reference_fields(get_config(arch)) == \
         dataclasses.asdict(jax_config(arch))
 
 
 def test_registry_lists_the_reference_dense_archs():
     """The port's registry is the reference's whole registry now (the
-    dense architectures and, since the families slice, the rest), and
-    every entry builds the reference's config."""
+    dense architectures and, since the families slice, the rest) and the
+    port's own entries (``PORT_ONLY``), and every other entry builds the
+    reference's config; the port's own entries build."""
     import dataclasses
     dense = {a for a in JAX_REGISTRY
              if jax_config(a).arch_type == "dense"}
     assert dense <= set(_REGISTRY)
-    assert _REGISTRY == JAX_REGISTRY
-    for a in _REGISTRY:
-        assert dataclasses.asdict(get_config(a)) == \
+    assert {a: m for a, m in _REGISTRY.items()
+            if a not in PORT_ONLY} == JAX_REGISTRY
+    for a in JAX_REGISTRY:
+        assert reference_fields(get_config(a)) == \
             dataclasses.asdict(jax_config(a))
+    for a in PORT_ONLY:
+        assert build_model(get_config(a)).n_params() > 0
