@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only roof        # the build and phase L
     python3 chip_smoke.py --only trace       # the build and phase T
     python3 chip_smoke.py --only head        # the build and phase X
+    python3 chip_smoke.py --only moe         # the build and phase M
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -46,6 +47,18 @@ X. the loss head on tensor cores (``phase_head``; ``--only head`` runs
    no GEMM runs on CUDA cores (``[head]`` lines); phases 3, 4, C, D, F,
    I then require the head's kernels once a chunk per micro-batch and
    step of their own training;
+M. the MoE dispatch through a slot map (``phase_moe``; ``--only moe``
+   runs the build and this phase alone): at the benchmark's MoE cells'
+   shapes (T 4096, K 6, d 2048, C 480; 64 experts held, and 32 of 64)
+   ``moe_plan``, ``moe_slot_gather`` and ``moe_assign_gather`` in each
+   of their uses against their plain versions (bitwise; the gates' dot
+   products within the f32 rounding of a sum in another order) and the
+   plan against the cumsum plan, each timed against its byte bound and
+   its plain version; then the dispatch and the combine, forward and
+   backward, through the slot map against the formulation before it
+   (cumsum plan, scatter-adds, gathers from a drop row): outputs and
+   expert-buffer gradients bitwise, time and peak memory (``[moe]``
+   lines);
 3. drive the LowDiff path: ``LowDiff`` on full-width gpt2-l (batch 4,
    seq 64, the CLI's f=20, b=2), resumed at step 19 so that its 20 steps
    write a full and then the longest chain those defaults produce (19
@@ -149,8 +162,8 @@ J. serving at full width and full depth, Hymba cut to 16 of 32 layers
    reduced gpt2-l decoded on the card as on the CPU); J2 qwen2-1.5b,
    DeepSeekMoE, Pixtral, Hymba (past its window), xLSTM and Seamless
    (prefilled cross K/V), each decoded from a seeded init against its
-   prefill. The decode path launches no kernel (the reference's is plain
-   ``jnp`` too). One ``[serve]`` line per model (params, weight and
+   prefill. The decode path launches no kernel but the MoE layer's
+   (the reference's is plain ``jnp`` too). One ``[serve]`` line per model (params, weight and
    cache bytes, first and median step ms, tok/s, peak device memory);
    ``--only serve`` runs the build and this phase alone
    (``--only hymba-f32`` decodes J2's Hymba alone with f32 compute);
@@ -1244,6 +1257,8 @@ PATH_KERNELS = {"topk": ("topk_select", "topk_scatter", "topk_apply"),
                 "quant8": ("quantize", "dequantize", "quant_apply")}
 #: the loss head's kernels (phase X), launched by every bf16 training step
 HEAD_KERNELS = ("xent_rows", "xent_grad_split")
+#: the MoE dispatch's kernels (phase M), launched by every MoE layer call
+MOE_KERNELS = ("moe_plan", "moe_slot_gather", "moe_assign_gather")
 
 
 def _head_launches(cfg, dev, seq: int, steps: int) -> int:
@@ -2077,12 +2092,14 @@ def phase_families(dev, ckdir: str):
     tolerance), K4 and K2 held against their plain versions on the last
     step's own leaves and payload, K1 on the run's own EF residual.
     Qwen3-MoE stays off the card: one full-width layer is 3.73 B params.
-    One line per family. Returns the summed launches."""
+    The MoE family must launch each of ``MOE_KERNELS``. One line per
+    family. Returns the summed launches."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import DTYPES
     from repro_torch.models.registry import build_model
-    total = {k: 0 for k in PATH_KERNELS["topk"] + HEAD_KERNELS}
+    total = {k: 0 for k in PATH_KERNELS["topk"] + HEAD_KERNELS
+             + MOE_KERNELS}
     for tag, arch, cut, batch, seq, parallel in FAMILIES:
         full = get_config(arch)
         cfg = full.replace(**cut)
@@ -2094,6 +2111,10 @@ def phase_families(dev, ckdir: str):
                                   seq=seq, parallel=parallel, stats=stats)
         for k in total:
             total[k] += got[k]
+        # the MoE layer's calls launch the dispatch's kernels
+        if cfg.moe.n_experts and not all(got[k] > 0 for k in MOE_KERNELS):
+            fail(f"{tag} the MoE layer did not launch each of "
+                 f"{MOE_KERNELS}: {({k: got[k] for k in MOE_KERNELS})}")
         depth = (f"cut to {cfg.n_layers} of {full.n_layers} layers"
                  if cfg.n_layers != full.n_layers else
                  f"{cfg.n_layers}{f' + {cfg.n_encoder_layers}' if cfg.n_encoder_layers else ''} layers (full depth)")
@@ -2111,8 +2132,11 @@ def phase_families(dev, ckdir: str):
             f"replay, bitwise){par}; peak device memory training "
             f"{stats['train_peak']} B, recovery {stats['rec_peak']} B above "
             f"the trained copy; K1/K2/K4 launches {got['topk_select']}/"
-            f"{got['topk_scatter']}/{got['topk_apply']}; "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{got['topk_scatter']}/{got['topk_apply']}"
+            + (f"; MoE dispatch launches "
+               f"{'/'.join(str(got[k]) for k in MOE_KERNELS)}"
+               if cfg.moe.n_experts else "")
+            + f"; {time.perf_counter() - t0:.1f} s")
         _release_pinned()
         torch.cuda.empty_cache()
     return total
@@ -2761,7 +2785,8 @@ def _serve_line(tag, cfg, n_params, weights, cache_b, B, P, gen, step_ms,
 
 def _decode_timed(tag, model, params, prompt, gen, dev, cache=None):
     """``serve.generate`` with the kernel counts set to 0 first and the
-    peak memory reset; the decode path must launch no kernel."""
+    peak memory reset; the decode path must launch no kernel but the MoE
+    layer's dispatch (``MOE_KERNELS``)."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.launch import serve
@@ -2770,7 +2795,7 @@ def _decode_timed(tag, model, params, prompt, gen, dev, cache=None):
     build.reset_launches()
     out = serve.generate(model, params, prompt, gen, dev, cache=cache,
                          keep_logits=True)
-    if any(build.LAUNCHES.values()):
+    if any(v for k, v in build.LAUNCHES.items() if k not in MOE_KERNELS):
         fail(f"{tag} decode launched kernels: {dict(build.LAUNCHES)}")
     return out + (torch.cuda.max_memory_allocated(),)
 
@@ -3977,6 +4002,200 @@ def phase_head(dev, reps: int = REPS) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase M
+#: the benchmark's MoE cells, one micro-batch: experts held, of all
+MOE_SHAPES = {"dsmoe": (64, 64), "dsv2lite": (32, 64)}
+MOE_T, MOE_K, MOE_D, MOE_C = 4096, 6, 2048, 480
+
+
+def _moe_inputs(shape: str, dev):
+    """Router-like assignments of T tokens to K of E experts (a mild
+    skew, so the busiest experts overflow C and drop), their gates, and
+    bf16 token rows, expert-output rows and output gradients."""
+    import torch
+    from repro_torch.models import moe
+    n, E = MOE_SHAPES[shape]
+    T, K, d = MOE_T, MOE_K, MOE_D
+    g = torch.Generator(device=dev).manual_seed(3)
+    logits = (torch.randn(T, E, generator=g, device=dev)
+              + torch.linspace(0.0, 0.5, E, device=dev))
+    gate, eid = moe.top_k(torch.softmax(logits, dim=-1), K)
+    rows = [torch.randn(r, d, generator=g, device=dev).to(torch.bfloat16)
+            for r in (T, n * MOE_C, T)]
+    return (n, gate, eid) + tuple(rows)
+
+
+def _moe_parent(xf, gate, eid, n: int, C: int, K: int):
+    """The dispatch and the combine before the slot map (cumsum plan, K
+    scatter-adds, K gathers from a drop row: ``ref.moe_*_ref``), around a
+    stand-in for the experts (``ye = xe * 1.5``): (y, ye)."""
+    from repro_torch.kernels import ref
+    T, d = xf.shape
+    dest, valid = ref.moe_cumsum_plan_ref(eid, 0, n, C)
+    ye = ref.moe_scatter_dispatch_ref(xf, dest, n, C, K).reshape(
+        n * C, d) * 1.5
+    return ref.moe_drop_row_combine_ref(ye, gate, dest, valid, K), ye
+
+
+def _moe_slot_map(xf, gate, eid, n: int, C: int, K: int):
+    """The same through the slot map (``models/moe.py``): (y, ye)."""
+    from repro_torch.models import moe
+    T, d = xf.shape
+    dest, valid, src = moe.moe_kernels.plan(eid, 0, n, C)
+    ye = moe._dispatch(xf, src, dest, n, K).reshape(n * C, d) * 1.5
+    w = (gate * valid.reshape(T, K)).to(xf.dtype).reshape(-1)
+    return moe._Combine.apply(ye, w, dest, src, K), ye
+
+
+def _moe_fwd_bwd(fn, xf, gate, eid, dy, n):
+    """y, and the gradients of the expert buffers, the tokens and the
+    gates, of ``fn``'s dispatch and combine."""
+    import torch
+    x = xf.detach().requires_grad_(True)
+    gt = gate.detach().requires_grad_(True)
+    y, ye = fn(x, gt, eid, n, MOE_C, MOE_K)
+    ye.retain_grad()
+    y.backward(dy)
+    return y.detach(), ye.grad, x.grad, gt.grad
+
+
+def phase_moe(dev, reps: int = REPS) -> dict:
+    """M. the MoE dispatch through a slot map (``--only moe``): at the
+    cells' shapes, the plan against its plain version and the cumsum
+    plan (bitwise), each gather in each of its uses against its plain
+    version (bitwise; the gates' dot products within the f32 rounding of
+    a sum in another order), each timed against its byte bound; then
+    the dispatch and the combine forward and backward, slot map against
+    the formulation before it: y and the expert buffers' gradient
+    bitwise, the gates' gradient within one bf16 spacing, the tokens'
+    within the K - 1 bf16 roundings of a sum in another order on each side
+    (2 (K - 1) 2^-9 of its norm), time and peak
+    memory above the inputs, and one launch of the plan and two of each
+    gather."""
+    import torch
+    from repro_torch.kernels import build, ref
+    from repro_torch.models import moe
+    t_phase = time.perf_counter()
+    kg = moe.moe_kernels
+    T, K, d, C = MOE_T, MOE_K, MOE_D, MOE_C
+    TK, b = T * K, 2
+    out = {}
+    for shape in MOE_SHAPES:
+        n, gate, eid, xf, ye, dy = _moe_inputs(shape, dev)
+        dest, valid, src = kg.plan(eid, 0, n, C)
+        want = ref.moe_plan_ref(eid, 0, n, C)
+        cs_dest, cs_valid = ref.moe_cumsum_plan_ref(eid, 0, n, C)
+        if not (all(torch.equal(a, w) for a, w in zip((dest, valid, src),
+                                                      want))
+                and torch.equal(dest, cs_dest)
+                and torch.equal(valid, cs_valid)):
+            fail(f"[moe] {shape} moe_plan differs from its plain version "
+                 f"or the cumsum plan")
+        kept = int(valid.sum())
+        # the token rows a gather has to read: each token with a kept
+        # assignment once, however many slots it fills
+        toks = int(valid.reshape(T, K).any(1).sum())
+        w = (gate * valid.reshape(T, K)).to(torch.bfloat16).reshape(-1)
+        # each gates' dot an f32 sum of d rounded products in another
+        # order: within d f32 roundings of the sum of their magnitudes
+        dot_bound = ref.slot_gather_ref(dy.abs(), src, K, None,
+                                        ye.abs())[1] * d * 2.0 ** -24
+        # (kernel, plain version, bytes, tolerance of each output: None
+        # bitwise, else the largest |kernel - plain| allowed)
+        uses = {
+            "moe_plan": (lambda: kg.plan(eid, 0, n, C),
+                         lambda: ref.moe_plan_ref(eid, 0, n, C),
+                         TK * 8 + TK * 8 + TK + n * C * 8,
+                         (None, None, None)),
+            "moe_slot_gather.dispatch": (
+                lambda: kg.slot_gather(xf, src, K),
+                lambda: ref.slot_gather_ref(xf, src, K),
+                toks * d * b + n * C * (d * b + 8), (None,)),
+            "moe_slot_gather.combine_bwd": (
+                lambda: kg.slot_gather(dy, src, K, w, ye),
+                lambda: ref.slot_gather_ref(dy, src, K, w, ye),
+                toks * d * b + kept * d * b + n * C * (d * b + 8)
+                + kept * (b + 4), (None, dot_bound)),
+            "moe_assign_gather.combine": (
+                lambda: kg.assign_gather(ye, dest, K, w),
+                lambda: ref.assign_gather_ref(ye, dest, K, w),
+                kept * d * b + T * d * b + TK * (8 + b), (None,)),
+            "moe_assign_gather.dispatch_bwd": (
+                lambda: kg.assign_gather(ye, dest, K),
+                lambda: ref.assign_gather_ref(ye, dest, K),
+                kept * d * b + T * d * b + TK * 8, (None,))}
+        for name, (fn, plain, nbytes, tols) in uses.items():
+            got, want = fn(), plain()
+            got, want = ((got,), (want,)) if torch.is_tensor(got) else (
+                got, want)
+            err = 0.0
+            for g_, w_, tol in zip(got, want, tols):
+                gap = (g_.double() - w_.double()).abs()
+                err = max(err, float(gap.max()) if gap.numel() else 0.0)
+                if not (bits_equal(g_, w_) if tol is None
+                        else bool((gap <= tol).all())):
+                    fail(f"[moe] {shape} {name} differs from its plain "
+                         f"version (largest gap {float(gap.max()):.3e})")
+            del got, want
+            r = {"ms": timed(fn, reps), "plain_ms": timed(plain, reps),
+                 "bytes": nbytes, "ops": 0, "max_abs_err": err}
+            _bound(r)
+            out[f"{name}.{shape}"] = r
+            log(f"[moe] {shape} {name}: {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms (bytes, "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}%), plain "
+                f"{r['plain_ms']:.4f} ms, largest |kernel - plain| "
+                f"{err:.3e}")
+        cs_ms = timed(lambda: ref.moe_cumsum_plan_ref(eid, 0, n, C), reps)
+        log(f"[moe] {shape} held {n} of 64, C {C}: {kept} of {TK} "
+            f"assignments kept, of {toks} tokens; the cumsum plan "
+            f"(parent) {cs_ms:.4f} ms")
+        del dot_bound
+        # the dispatch and the combine, forward and backward
+        res = {}
+        for pname, fn in (("slot_map", _moe_slot_map),
+                          ("parent", _moe_parent)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            n0 = dict(build.LAUNCHES)
+            res[pname] = _moe_fwd_bwd(fn, xf, gate, eid, dy, n)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = {k: build.LAUNCHES[k] - n0[k] for k in MOE_KERNELS}
+            ms = timed(lambda: _moe_fwd_bwd(fn, xf, gate, eid, dy, n), 5)
+            out[f"fwd_bwd.{shape}.{pname}"] = {"ms": ms, "peak_bytes": peak}
+            log(f"[moe] {shape} dispatch + combine fwd+bwd {pname}: "
+                f"{ms:.3f} ms, peak {peak / 1e9:.3f} GB above inputs, "
+                f"launches {launches}")
+            if pname == "slot_map" and launches != {
+                    "moe_plan": 1, "moe_slot_gather": 2,
+                    "moe_assign_gather": 2}:
+                fail(f"[moe] {shape}: launches {launches}")
+        (y, gye, gx, gg), (py, pgye, pgx, pgg) = res["slot_map"], \
+            res["parent"]
+        spacing = torch.ldexp(torch.ones_like(pgg), torch.frexp(
+            pgg.abs().clamp_min(2.0 ** -126))[1] - 8)
+        gx_gap = float((gx.float() - pgx.float()).norm()
+                       / pgx.float().norm())
+        log(f"[moe] {shape} slot map vs parent: y bitwise "
+            f"{bits_equal(y, py)}, expert-buffer gradient bitwise "
+            f"{bits_equal(gye, pgye)}, gate gradient max "
+            f"{float(((gg - pgg).abs() / spacing).max()):.3f} bf16 spacings"
+            f", token gradient norm gap {gx_gap:.3e}; speed-up "
+            f"{out[f'fwd_bwd.{shape}.parent']['ms'] / out[f'fwd_bwd.{shape}.slot_map']['ms']:.2f}x")
+        if not (bits_equal(y, py) and bits_equal(gye, pgye)
+                and bool(((gg - pgg).abs() <= spacing).all())
+                and gx_gap < 2 * (K - 1) * 2.0 ** -9):
+            fail(f"[moe] {shape}: the slot map is off the parent's "
+                 f"formulation")
+        del res, y, gye, gx, gg, py, pgye, pgx, pgg, xf, ye, dy
+        torch.cuda.empty_cache()
+    log(f"[time] phase M: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- main
 KERNELS = [
     ("topk_select", "src/repro_torch/kernels/csrc/topk.cu",
@@ -4012,10 +4231,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("all", "kernels", "families",
                                        "serve", "hymba-f32", "dist", "roof",
-                                       "trace", "head"),
-                    default="all", help="kernels: stop after phases A and X; "
-                    "families / serve / dist / roof / trace / head: the "
-                    "build and phase I / J / K / L / T / X alone; "
+                                       "trace", "head", "moe"),
+                    default="all", help="kernels: stop after phases A, X "
+                    "and M; families / serve / dist / roof / trace / head / "
+                    "moe: the build and phase I / J / K / L / T / X / M "
+                    "alone; "
                     "hymba-f32: the build "
                     "and J2's Hymba with f32 compute")
     ap.add_argument("--roof-cpu", default=None, metavar="OUT",
@@ -4056,13 +4276,15 @@ def main() -> int:
         child = _start_roof_cpu()
         atexit.register(_stop_child, child[0])
     if args.only in ("families", "serve", "hymba-f32", "dist", "roof",
-                     "trace", "head"):
+                     "trace", "head", "moe"):
         if args.only == "dist":
             got = phase_dist(dev)
         elif args.only == "trace":
             got = phase_trace(dev)
         elif args.only == "head":
             got = {k: v["ms"] for k, v in phase_head(dev).items()}
+        elif args.only == "moe":
+            got = {k: v["ms"] for k, v in phase_moe(dev).items()}
         elif args.only == "roof":
             got = phase_roof(cfg, dev, smi, child)
         elif args.only == "hymba-f32":
@@ -4087,6 +4309,8 @@ def main() -> int:
     log(f"[time] + phase A: {time.perf_counter() - t_all:.1f} s")
     head = phase_head(dev)
     log(f"[time] + phase X: {time.perf_counter() - t_all:.1f} s")
+    moe_res = phase_moe(dev)
+    log(f"[time] + phase M: {time.perf_counter() - t_all:.1f} s")
     build.reset_launches()
     # no training or recovery path packs or decodes alone on the card
     # (the replica quantizes on the host, and K7 decodes inside itself,
@@ -4142,8 +4366,8 @@ def main() -> int:
             launches[k] += v
         log(f"[time] + phase H: {time.perf_counter() - t_all:.1f} s")
         got = phase_families(dev, args.ckpt_dir)
-        for k in PATH_KERNELS["topk"] + HEAD_KERNELS:
-            launches[k] += got.get(k, 0)
+        for k in PATH_KERNELS["topk"] + HEAD_KERNELS + MOE_KERNELS:
+            launches[k] = launches.get(k, 0) + got[k]
         log(f"[time] + phase I: {time.perf_counter() - t_all:.1f} s")
         got = phase_serve(dev, args.ckpt_dir)
         for k in PATH_KERNELS["topk"]:
@@ -4175,6 +4399,19 @@ def main() -> int:
         r = head[f"{name}.dsmoe"]
         kernels.append({"name": name, "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/xent.cu",
+                        "replaces": None, "launches": launches.get(name, 0),
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+    # the MoE dispatch's kernels replace no pallas_call; timed at
+    # DeepSeek-V2-Lite's shape (32 of 64 experts held), launched by phase
+    # I's DeepSeekMoE training
+    for name, use in (("moe_plan", "moe_plan"),
+                      ("moe_slot_gather", "moe_slot_gather.combine_bwd"),
+                      ("moe_assign_gather", "moe_assign_gather.combine")):
+        r = moe_res[f"{use}.dsv2lite"]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/moe.cu",
                         "replaces": None, "launches": launches.get(name, 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -26,7 +26,8 @@ from typing import Dict, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("topk", "fused_adam", "replay", "span", "quant8", "xent")
+SOURCES = ("topk", "fused_adam", "replay", "span", "quant8", "xent",
+           "moe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               # every product and sum rounded on its own, as the plain
@@ -41,7 +42,8 @@ LAUNCHES: Dict[str, int] = {"topk_select": 0, "topk_scatter": 0,
                             "pack_scatter": 0, "packed_apply": 0,
                             "quantize": 0, "dequantize": 0,
                             "quant_apply": 0, "xent_rows": 0,
-                            "xent_grad_split": 0}
+                            "xent_grad_split": 0, "moe_plan": 0,
+                            "moe_slot_gather": 0, "moe_assign_gather": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -144,6 +146,11 @@ _SIGS = {
              "span_apply_": [_VP] * 3 + [_LL] * 4 + [_INT, _VP]},
     "xent": {"xent_rows_": [_VP] * 6 + [_LL] * 3 + [_VP],
              "xent_grad_split_": [_VP] * 6 + [_LL] * 3 + [_VP]},
+    "moe": {"moe_plan_": [_VP] + [_LL] * 4 + [_VP] * 4,
+            "moe_slot_gather_": [_VP] * 2 + [_LL] * 3 + [_VP] * 4
+            + [_INT, _VP],
+            "moe_assign_gather_": [_VP, _LL, _VP] + [_LL] * 3 + [_VP] * 2
+            + [_INT, _VP]},
 }
 
 

@@ -271,3 +271,116 @@ def rounded_apart(got: torch.Tensor, want: torch.Tensor,
     differ = a != b
     ratio = torch.where(differ, (a - b).abs() / bound, torch.zeros_like(a))
     return float(ratio.max()), float(differ.float().mean())
+
+
+def moe_plan_ref(eid: torch.Tensor, first: int, n: int, C: int):
+    """``moe_plan``: (dest, valid, src) of the assignments ``eid`` (T, K)
+    to the ``n`` experts from ``first`` with ``C`` slots each, by a
+    stable sort of the flat assignments by expert (those to experts not
+    held last): an assignment's position among its expert's is its index
+    in the sorted order less the index where that expert starts. No
+    shape here depends on the data (the dry run's fake tensors)."""
+    rel = eid.reshape(-1) - first
+    TK = rel.numel()
+    idx = torch.arange(TK, dtype=torch.int64, device=eid.device)
+    mine = (rel >= 0) & (rel < n)
+    key = torch.where(mine, rel, torch.full_like(rel, n))
+    skey, order = torch.sort(key, stable=True)
+    start = torch.searchsorted(skey, torch.arange(
+        n + 1, dtype=skey.dtype, device=eid.device))
+    pos = torch.empty_like(rel)
+    pos[order] = idx - start[skey]
+    valid = mine & (pos < C)
+    dest = torch.where(valid, key * C + pos, torch.full_like(rel, n * C))
+    src = torch.full((n * C + 1,), -1, dtype=torch.int64, device=eid.device)
+    return dest, valid, src.scatter_(0, dest, idx)[:n * C]
+
+
+def slot_gather_ref(x: torch.Tensor, src: torch.Tensor, K: int, w=None,
+                    dot_rows=None):
+    """``moe_slot_gather``: out[s] = x[src[s] // K] * w[src[s]] (without
+    ``w`` the row), zeros where src[s] < 0; with ``dot_rows`` also dots
+    (T·K,) f32: for the assignment a filling slot s, the f32 sum of the
+    products x[t] * dot_rows[s] rounded to x's dtype, 0 elsewhere."""
+    filled = src >= 0
+    a = src.clamp(min=0)
+    rows = x[a // K]
+    out = rows if w is None else rows * w.reshape(-1)[a][:, None]
+    out = torch.where(filled[:, None], out, torch.zeros((), dtype=x.dtype))
+    if dot_rows is None:
+        return out
+    TK = x.shape[0] * K
+    dot = (rows * dot_rows).float().sum(-1)
+    dots = torch.zeros((TK + 1,), dtype=torch.float32, device=x.device)
+    dots.scatter_(0, torch.where(filled, a, torch.full_like(a, TK)), dot)
+    return out, dots[:TK]
+
+
+def assign_gather_ref(rows: torch.Tensor, dest: torch.Tensor, K: int,
+                      w=None) -> torch.Tensor:
+    """``moe_assign_gather``: out[t] = the sum over k = 0..K-1 whose slot
+    dest[t·K + k] lies in [0, R) of rows[slot] * w[t·K + k] (without
+    ``w``, the row), from zero, in k order, every product and add
+    rounded to rows' dtype."""
+    R, d = rows.shape
+    dk = dest.reshape(-1, K)
+    kept = (dk >= 0) & (dk < R)
+    idx = dk.clamp(0, R - 1)
+    wk = None if w is None else w.reshape(-1, K)
+    out = torch.zeros((dk.shape[0], d), dtype=rows.dtype, device=rows.device)
+    for k in range(K):
+        term = rows[idx[:, k]]
+        if wk is not None:
+            term = term * wk[:, k, None]
+        out = torch.where(kept[:, k, None], out + term, out)
+    return out
+
+
+def moe_cumsum_plan_ref(eid: torch.Tensor, first: int, n: int, C: int):
+    """The MoE layer's plan before the slot map, (dest, valid) as
+    ``moe_plan`` gives them: an assignment's position among those to its
+    expert is the exclusive cumsum of the (T·K, n) f32 one-hot of the
+    assignments to the experts ``[first, first + n)`` (others masked
+    out)."""
+    T, K = eid.shape
+    rel = eid - first
+    mine = (rel >= 0) & (rel < n)
+    oh = torch.where(mine[..., None],
+                     torch.nn.functional.one_hot(rel.clamp(0, n - 1),
+                                                 n).float(),
+                     0.0).reshape(T * K, n)
+    pos = ((torch.cumsum(oh, dim=0) - oh) * oh).sum(-1).to(torch.int64)
+    valid = mine.reshape(T * K) & (pos < C)
+    dest = torch.where(valid, rel.reshape(T * K).clamp(0, n - 1) * C + pos,
+                       torch.full_like(pos, n * C))
+    return dest, valid
+
+
+def moe_scatter_dispatch_ref(xf: torch.Tensor, dest: torch.Tensor, n: int,
+                             C: int, K: int) -> torch.Tensor:
+    """The MoE layer's dispatch before the slot map: K scatter-adds of
+    the token rows ``xf`` (T, d) into (n·C + 1, d) buffers whose last
+    row (the drop slot) is thrown away: (n, C, d)."""
+    T, d = xf.shape
+    dest_k = dest.reshape(T, K)
+    buf = torch.zeros((n * C + 1, d), dtype=xf.dtype, device=xf.device)
+    for k in range(K):
+        buf = buf.index_add(0, dest_k[:, k], xf)
+    return buf[:n * C].reshape(n, C, d)
+
+
+def moe_drop_row_combine_ref(ye: torch.Tensor, gate: torch.Tensor,
+                             dest: torch.Tensor, valid: torch.Tensor,
+                             K: int) -> torch.Tensor:
+    """The MoE layer's combine before the slot map: K gathers from the
+    expert outputs ``ye`` (n·C, d) with a zero drop row appended, each
+    weighted by the gate of a kept assignment in ye's dtype: (T, d)."""
+    d, dt = ye.shape[1], ye.dtype
+    T = gate.shape[0]
+    y_flat = torch.cat([ye, torch.zeros((1, d), dtype=dt, device=ye.device)])
+    dest_k, valid_k = dest.reshape(T, K), valid.reshape(T, K)
+    y = torch.zeros((T, d), dtype=dt, device=ye.device)
+    for k in range(K):
+        w = (gate[:, k] * valid_k[:, k]).to(dt)[:, None]
+        y = y + y_flat[dest_k[:, k]] * w
+    return y

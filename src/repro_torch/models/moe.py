@@ -1,15 +1,22 @@
 """Capacity-based top-k Mixture-of-Experts layer, dense dispatch and
 expert parallel (port of ``repro.models.moe``).
 
-Dispatch is the cumsum/position-in-expert formulation (Switch/T5X
-style) with gather/scatter instead of a (tokens, experts, capacity)
-one-hot einsum: an assignment's slot in its expert is the exclusive
-cumsum of the flattened ``(T·K, E)`` one-hot, assignments past the
-capacity go to a drop slot ``E·C`` that is thrown away, and the experts
-run as one batched matmul over ``(E, C, d)``. DeepSeekMoE-style shared
-experts are dense SwiGLU paths added on top. On a live mesh with a
-``model`` axis, :func:`moe_apply` takes the expert-parallel path
-(:func:`_moe_apply_ep`) where the reference does.
+Dispatch is the position-in-expert formulation (Switch/T5X style) with
+gathers instead of a (tokens, experts, capacity) one-hot einsum: an
+assignment's slot in its expert is the number of earlier assignments to
+that expert (the exclusive cumsum of the flattened ``(T·K, E)`` one-hot,
+which the reference computes), assignments past the capacity go to a
+drop slot ``E·C`` that holds no row, and the experts run as one batched
+matmul over ``(E, C, d)``. The plan (``kernels/moe.py::plan``) also
+gives its inverse, each slot's assignment ``src``, so every data
+movement of the layer is a gather with no collisions: the dispatch
+(:class:`_Dispatch`) gathers each slot's token row, and its backward
+sums each token's slot rows; the combine (:class:`_Combine`) sums each
+token's gated slot rows, and its backward gathers each slot's gated
+output gradient. DeepSeekMoE-style shared experts are dense SwiGLU paths
+added on top. On a live mesh with a ``model`` axis, :func:`moe_apply`
+takes the expert-parallel path (:func:`_moe_apply_ep`) where the
+reference does.
 
 Two port-only options (``MoEConfig``): ``norm_topk=False`` keeps the
 top-k softmax gates as they are, and ``held_experts`` makes the layer
@@ -17,8 +24,9 @@ this card's share of an expert-parallel deployment: it holds experts
 ``[0, held)`` only, routes over all ``n_experts`` with the capacity of
 all of them, and computes the part of the result its own experts give
 (the local half of the EP path's masking, without the exchange). The
-router, the slotting and the scatter into the expert buffers are one
-``moe.route`` span when tracing is on.
+router, the slotting and the gather into the expert buffers are one
+``moe.route`` span when tracing is on; the backward of the dispatch and
+of the combine are ``moe.route.bwd`` spans.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import moe as moe_kernels
 from repro_torch.models.param import ParamSpec
 from repro_torch.obs.trace import trace_span
 
@@ -115,34 +124,25 @@ def _gates(router, xf, cfg: ArchConfig):
     return gate, eid, aux
 
 
-def _dispatch_plan(eid, first: int, n: int, C: int):
-    """The dispatch plan of the assignments ``eid`` (T,K) to the ``n``
-    experts ``[first, first + n)``: (dest (T·K,), valid (T·K,)). An
-    assignment's slot is its expert's (relative to ``first``) times
-    ``C`` plus its position among the assignments to that expert, in
-    token order; the assignments to other experts and those past ``C``
-    go to the drop slot ``n·C``."""
-    T, K = eid.shape
-    rel = eid - first                                             # (T,K)
-    mine = (rel >= 0) & (rel < n)
-    # position among the assignments to my group (others masked out)
-    oh_loc = torch.where(mine[..., None],
-                         F.one_hot(rel.clamp(0, n - 1), n).float(),
-                         0.0).reshape(T * K, n)
-    pos = torch.cumsum(oh_loc, dim=0) - oh_loc
-    pos_in_e = (pos * oh_loc).sum(dim=-1).to(torch.int64)
-    valid = mine.reshape(T * K) & (pos_in_e < C)
-    dest = torch.where(valid, rel.reshape(T * K).clamp(0, n - 1) * C
-                       + pos_in_e, torch.full_like(pos_in_e, n * C))
-    return dest, valid
+def route_slots(router, xf, cfg: ArchConfig, first: int, n: int, C: int):
+    """The router and the dispatch plan of ``T`` tokens ``xf`` (T, d) to
+    the ``n`` experts ``[first, first + n)``, ``C`` slots each: (gate
+    (T,K) f32, eid (T,K), dest (T·K,) slot in ``n·C + 1``, valid (T·K,),
+    src (n·C,) each slot's assignment or -1, aux). An assignment's slot
+    is its expert's (relative to ``first``) times ``C`` plus its
+    position among the assignments to that expert, in token order; the
+    assignments to other experts and those past ``C`` go to the drop
+    slot ``n·C`` (``moe_kernels.plan``)."""
+    gate, eid, aux = _gates(router, xf, cfg)
+    dest, valid, src = moe_kernels.plan(eid, first, n, C)
+    return gate, eid, dest, valid, src, aux
 
 
 def route(p, xf, cfg: ArchConfig, C: int):
-    """The router and the dispatch plan of ``T`` tokens ``xf`` (T, d):
-    (gate (T,K) f32, eid (T,K), dest (T·K,) slot in ``n·C + 1``, valid
-    (T·K,), aux), for the ``n`` experts the layer holds."""
-    gate, eid, aux = _gates(p["router"], xf, cfg)
-    dest, valid = _dispatch_plan(eid, 0, cfg.moe.held(), C)
+    """:func:`route_slots` over the experts the layer holds, without
+    ``src``: (gate, eid, dest, valid, aux)."""
+    gate, eid, dest, valid, _, aux = route_slots(p["router"], xf, cfg, 0,
+                                                 cfg.moe.held(), C)
     return gate, eid, dest, valid, aux
 
 
@@ -156,30 +156,73 @@ def _moe_apply_dense(p, x, cfg: ArchConfig):
     xf = x.reshape(T, d)
     with trace_span("moe.route", "model", device=True, assignments=T * K,
                     slots=n * C):
-        gate, _, dest, valid, aux = route(p, xf, cfg, C)
-        xe = _dispatch(xf, dest, n, C, K)
+        gate, eid, dest, valid, src, aux = route_slots(p["router"], xf, cfg,
+                                                       0, n, C)
+        xe = _dispatch(xf, src, dest, n, K)
 
-    y = _experts(xe, gate, dest, valid, p["we_g"], p["we_u"], p["we_d"], K)
+    y = _experts(xe, gate, dest, valid, src, p["we_g"], p["we_u"],
+                 p["we_d"], K)
     if m.n_shared:
         y = y + _shared_expert(p, xf, x.dtype)
     return y.reshape(B, S, d), aux
 
 
-def _dispatch(xf, dest, E: int, C: int, K: int):
-    """The (E, C, d) buffers of ``E`` experts of capacity ``C``: the
-    ``T`` tokens ``xf`` scattered to their slots ``dest`` (slot ``E·C``
-    drops)."""
-    T, d = xf.shape
-    # scatter per k-slot: within one slot the destinations are distinct
-    # except the drop slot, whose row is thrown away
-    dest_k = dest.reshape(T, K)
-    buf = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
-    for kk in range(K):
-        buf = buf.index_add(0, dest_k[:, kk], xf)
-    return buf[:E * C].reshape(E, C, d)
+class _Dispatch(torch.autograd.Function):
+    """The expert buffers (n·C, d): slot s holds the row of token
+    ``src[s] // K``, zeros where empty (the expert GEMMs' weight
+    gradients read them). Backward: token t's gradient is the sum of
+    its kept assignments' slot gradients, k = 0..K-1 in order."""
+
+    @staticmethod
+    def forward(ctx, xf, src, dest, K: int):
+        ctx.save_for_backward(dest)
+        ctx.K = K
+        return moe_kernels.slot_gather(xf.contiguous(), src, K)
+
+    @staticmethod
+    def backward(ctx, dxe):
+        (dest,) = ctx.saved_tensors
+        with trace_span("moe.route.bwd", "model", device=True):
+            dxf = moe_kernels.assign_gather(dxe.contiguous(), dest, ctx.K)
+        return dxf, None, None, None
 
 
-def _experts(xe, gate, dest, valid, wg, wu, wd, K: int):
+class _Combine(torch.autograd.Function):
+    """The layer's output (T, d) from the expert outputs ``ye`` (n·C, d):
+    y[t] = sum over the kept k of ye[dest[t·K + k]] * w[t·K + k], each
+    product and add rounded to the compute dtype, from zero, k in order
+    (``w`` is the gates of the kept assignments, in that dtype, 0 for the
+    others). Backward: slot s's gradient is dy[t] * w[a] for the
+    assignment a = t·K + k that fills it (zeros where empty), and w[a]'s
+    is the f32 sum over d of dy[t] * ye[s] rounded to w's dtype."""
+
+    @staticmethod
+    def forward(ctx, ye, w, dest, src, K: int):
+        ctx.save_for_backward(ye, w, dest, src)
+        ctx.K = K
+        return moe_kernels.assign_gather(ye, dest, K, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ye, w, dest, src = ctx.saved_tensors
+        need_w = ctx.needs_input_grad[1]
+        with trace_span("moe.route.bwd", "model", device=True):
+            out = moe_kernels.slot_gather(dy.contiguous(), src, ctx.K, w,
+                                          ye if need_w else None)
+        if not need_w:
+            return out, None, None, None, None
+        dye, dots = out
+        return dye, dots.to(w.dtype), None, None, None
+
+
+def _dispatch(xf, src, dest, n: int, K: int):
+    """The (n, C, d) buffers of ``n`` experts whose slots' assignments
+    are ``src`` (n·C,): the ``T`` tokens ``xf`` gathered to their slots;
+    ``dest`` routes the gradient back."""
+    return _Dispatch.apply(xf, src, dest, K).view(n, -1, xf.shape[1])
+
+
+def _experts(xe, gate, dest, valid, src, wg, wu, wd, K: int):
     """Run the experts on their buffers ``xe`` (E, C, d) and combine
     their outputs by the gates of the valid assignments: (T, d)."""
     E, C, d = xe.shape
@@ -188,15 +231,8 @@ def _experts(xe, gate, dest, valid, wg, wu, wd, K: int):
     u = torch.bmm(xe, wu.to(dt))
     h = F.silu(g.float()).to(dt) * u
     ye = torch.bmm(h, wd.to(dt))
-
-    y_flat = torch.cat([ye.reshape(E * C, d),
-                        torch.zeros((1, d), dtype=dt, device=xe.device)])
-    dest_k, valid_k = dest.reshape(T, K), valid.reshape(T, K)
-    y = torch.zeros((T, d), dtype=dt, device=xe.device)
-    for kk in range(K):
-        w = (gate[:, kk] * valid_k[:, kk]).to(dt)[:, None]
-        y = y + y_flat[dest_k[:, kk]] * w
-    return y
+    w = (gate * valid.reshape(T, K)).to(dt).reshape(T * K)
+    return _Combine.apply(ye.reshape(E * C, d), w, dest, src, K)
 
 
 def _shared_expert(p, xf, dtype):
@@ -249,9 +285,9 @@ def _moe_apply_ep(p, x, cfg: ArchConfig, ctx, ep: int):
     else:
         xl = col.copy_to(x, mg)
     xf = xl.reshape(T, d)
-    gate, eid, aux = _gates(router, xf, cfg)
-    dest, valid = _dispatch_plan(eid, rank * E_loc, E_loc, C)
-    y = _experts(_dispatch(xf, dest, E_loc, C, K), gate, dest, valid,
+    gate, eid, dest, valid, src, aux = route_slots(router, xf, cfg,
+                                                   rank * E_loc, E_loc, C)
+    y = _experts(_dispatch(xf, src, dest, E_loc, K), gate, dest, valid, src,
                  wg, wu, wd, K)
     y = y.reshape(B, S, d)
     if seq_shard:

@@ -22,6 +22,7 @@ from repro_torch.core import recovery as rec
 from repro_torch.core import steps
 from repro_torch.core.lowdiff import LowDiff
 from repro_torch.data.synthetic import make_batch
+from repro_torch.kernels import build, ref
 from repro_torch.models import mla, moe, ops
 from repro_torch.models.registry import build_model
 
@@ -209,9 +210,9 @@ def test_shares_of_the_experts_add_up_to_the_whole_layer():
     C = moe.capacity(T, cfg)
     xf = x.reshape(T, -1)
     gate, eid, aux_hi = moe._gates(hi["router"], xf, cfg)
-    dest, valid = moe._dispatch_plan(eid, E // 2, E // 2, C)
-    y_hi = moe._experts(moe._dispatch(xf, dest, E // 2, C, K), gate, dest,
-                        valid, hi["we_g"], hi["we_u"], hi["we_d"], K)
+    dest, valid, src = moe.moe_kernels.plan(eid, E // 2, E // 2, C)
+    y_hi = moe._experts(moe._dispatch(xf, src, dest, E // 2, K), gate, dest,
+                        valid, src, hi["we_g"], hi["we_u"], hi["we_d"], K)
     y_hi = y_hi.reshape(x.shape)
     torch.testing.assert_close(y_lo + y_hi, whole, rtol=1e-6, atol=1e-6)
     assert torch.equal(aux_lo, aux) and torch.equal(aux_hi, aux)
@@ -260,6 +261,119 @@ def test_defaults_keep_the_moe_layer_bit_for_bit(cf):
     want_dest, want_valid = _plan_over_all_experts(eid, E, C)
     assert torch.equal(dest, want_dest) and torch.equal(valid, want_valid)
     assert bool(valid.all()) == (cf > 1.0)
+
+
+def _parent_experts(xe, gate, dest, valid, wg, wu, wd, K: int):
+    """The layer's experts and combine before the slot map (the combine
+    ``ref.moe_drop_row_combine_ref``)."""
+    E, C, d = xe.shape
+    dt = xe.dtype
+    g = torch.bmm(xe, wg.to(dt))
+    u = torch.bmm(xe, wu.to(dt))
+    h = torch.nn.functional.silu(g.float()).to(dt) * u
+    ye = torch.bmm(h, wd.to(dt))
+    return ref.moe_drop_row_combine_ref(ye.reshape(E * C, d), gate, dest,
+                                        valid, K)
+
+
+def _parent_moe_dense(p, x, cfg):
+    """``moe._moe_apply_dense`` as it was before the slot map."""
+    B, S, d = x.shape
+    m = cfg.moe
+    n, K = m.held(), m.top_k
+    T = B * S
+    C = moe.capacity(T, cfg)
+    xf = x.reshape(T, d)
+    gate, eid, aux = moe._gates(p["router"], xf, cfg)
+    dest, valid = ref.moe_cumsum_plan_ref(eid, 0, n, C)
+    y = _parent_experts(ref.moe_scatter_dispatch_ref(xf, dest, n, C, K),
+                        gate, dest, valid, p["we_g"], p["we_u"], p["we_d"], K)
+    if m.n_shared:
+        y = y + moe._shared_expert(p, xf, x.dtype)
+    return y.reshape(B, S, d), aux
+
+
+def _moe_case(cf: float, held: int, dtype, T: int = 96, seed: int = 4):
+    """Reduced DeepSeekMoE with 8 experts, top-3, at capacity factor
+    ``cf`` holding ``held`` experts (0: all) in ``dtype``: (cfg, layer
+    params, x (2, T/2, d)), the router scaled so that its softmax picks
+    experts unevenly."""
+    base = get_config("deepseek-moe-16b").reduced()
+    cfg = base.replace(compute_dtype=str(dtype).split(".")[-1],
+                       moe=dataclasses.replace(base.moe, n_experts=8,
+                                               top_k=3, capacity_factor=cf,
+                                               held_experts=held))
+    p = {k: v[0] for k, v in build_model(cfg).init(seed, device="cpu")
+         ["layers"]["moe"].items()}
+    g = torch.Generator().manual_seed(seed)
+    p["router"] = p["router"] * 20.0
+    x = torch.randn(2, T // 2, cfg.d_model, generator=g).to(dtype)
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("share", ["all", "low-half", "high-half"])
+@pytest.mark.parametrize("cf", [1.0, 2.5])
+def test_slot_plan_is_the_cumsum_plan_and_its_inverse(cf, share):
+    """The slot map's dest and valid are the cumsum plan's bit for bit,
+    with drops (capacity factor 1) and without, for the whole expert
+    set and for each half; src is dest's exact inverse: src[dest[a]] ==
+    a for every kept a, and every other slot holds -1."""
+    cfg, p, x = _moe_case(cf, 0, torch.float32, T=256)
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    first, n = {"all": (0, E), "low-half": (0, E // 2),
+                "high-half": (E // 2, E // 2)}[share]
+    T = x.shape[0] * x.shape[1]
+    C = moe.capacity(T, cfg)
+    _, eid, _ = moe._gates(p["router"], x.reshape(T, -1), cfg)
+    dest, valid, src = moe.moe_kernels.plan(eid, first, n, C)
+    want_dest, want_valid = ref.moe_cumsum_plan_ref(eid, first, n, C)
+    assert torch.equal(dest, want_dest) and torch.equal(valid, want_valid)
+    kept = torch.nonzero(valid)[:, 0]
+    assert torch.equal(src[dest[kept]], kept)
+    empty = torch.ones(n * C, dtype=torch.bool)
+    empty[dest[kept]] = False
+    assert bool((src[empty] == -1).all())
+    assert src.shape == (n * C,) and src.dtype == torch.int64
+    # drops happen at capacity factor 1 and not at 2.5
+    mine = ((eid - first >= 0) & (eid - first < n)).reshape(-1)
+    assert bool((valid == mine).all()) == (cf > 1.0)
+
+
+@pytest.mark.parametrize("held", [0, 4], ids=["all-experts", "held-4-of-8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_layer_is_the_parent_formulation(dtype, held):
+    """The MoE layer through the slot map against its formulation before
+    (cumsum plan, scatter-adds, gathers from a drop row): the output and
+    the gradients of the expert weights bit for bit; the gradients of
+    the input and the router (sums over k and over d in another order)
+    within GRAD_TOL in f32, and within the roundings of a K-term bf16 sum
+    in bf16; drops included (capacity factor 1)."""
+    cfg, p, x = _moe_case(1.0, held, dtype)
+    assert cfg.moe.n_experts == 8 and (held == 0 or cfg.moe.held() == held)
+
+    def run(fn):
+        pt = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xt = x.clone().requires_grad_(True)
+        y, aux = fn(pt, xt, cfg)
+        dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(2)
+                         ).to(dtype)
+        names = sorted(pt)
+        grads = torch.autograd.grad((y.float() * dy.float()).sum() + aux,
+                                    [pt[k] for k in names] + [xt])
+        return y, aux, dict(zip(names + ["x"], grads))
+
+    y, aux, g = run(moe._moe_apply_dense)
+    py, paux, pg = run(_parent_moe_dense)
+    assert torch.equal(y, py) and torch.equal(aux, paux)
+    for k in ("we_g", "we_u", "we_d"):
+        assert torch.equal(g[k], pg[k]), k
+    # bf16: K - 1 rounded adds of the K terms of the input's gradient on
+    # each side, in another order, each within half a spacing (2^-9)
+    K = cfg.moe.top_k
+    tol = GRAD_TOL if dtype == torch.float32 else 2 * (K - 1) * 2.0 ** -9
+    gaps = {k: _gap(g[k].float(), pg[k].float()) for k in g}
+    assert max(gaps.values()) < tol, gaps
 
 
 def test_dense_layers_get_per_layer_autograd_leaves():
@@ -401,3 +515,211 @@ def test_port_only_entries_build_and_stay_out_of_the_assigned_list():
         cfg = get_config(a)
         assert build_model(cfg).n_params() == cfg.param_count()
         assert build_model(cfg.reduced()).n_params() > 0
+
+
+def test_backward_opens_a_span_per_dispatch_and_combine():
+    """With tracing on, each MoE layer call's backward opens two
+    ``moe.route.bwd`` spans (the dispatch's and the combine's), one
+    ``moe.route`` span per forward call, none with tracing off."""
+    from repro_torch.obs.trace import TRACER
+    cfg, p, x = _moe_case(1.25, 4, torch.float32)
+    pt = {k: v.requires_grad_(True) for k, v in p.items()}
+    was = TRACER.enabled
+    TRACER.clear()
+    TRACER.enable()
+    try:
+        y, aux = moe._moe_apply_dense(pt, x.requires_grad_(True), cfg)
+        torch.autograd.grad(y.sum() + aux, [pt["router"], x])
+        names = [e[0] for e in TRACER.events()]
+    finally:
+        if not was:
+            TRACER.disable()
+        TRACER.clear()
+    assert names.count("moe.route") == 1
+    assert names.count("moe.route.bwd") == 2
+
+
+# ------------------------------------------------------------ on the card
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda", 0)
+
+
+#: the benchmark's MoE cells, one micro-batch: DeepSeekMoE's 64 experts,
+#: DeepSeek-V2-Lite's 32 held of 64 (T 4096, K 6, d 2048, C 480)
+CARD_CELLS = {"dsmoe": ("deepseek-moe-16b", 0),
+              "dsv2lite": ("deepseek-v2-lite", 32)}
+
+
+def _card_layer(cell: str, dev, seed: int = 1):
+    """(cfg, layer params, x (2, 2048, d) bf16) at a cell's widths, the
+    params drawn at the scale of the benchmark's init."""
+    arch, held = CARD_CELLS[cell]
+    full = get_config(arch)
+    cfg = full.replace(moe=dataclasses.replace(full.moe, held_experts=held))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = {}
+    for k, spec in moe.moe_specs(cfg, 1).items():
+        shape = tuple(spec.shape[1:])
+        dt = torch.float32 if k == "router" else torch.bfloat16
+        p[k] = (torch.randn(shape, generator=g, device=dev)
+                / shape[-2] ** 0.5).to(dt)
+    x = torch.randn(2, 2048, cfg.d_model, generator=g, device=dev
+                    ).to(torch.bfloat16)
+    return cfg, p, x
+
+
+def _card_plan(cell: str, dev):
+    cfg, p, x = _card_layer(cell, dev)
+    T = x.shape[0] * x.shape[1]
+    C = moe.capacity(T, cfg)
+    assert (T, cfg.moe.top_k, cfg.d_model, C) == (4096, 6, 2048, 480)
+    gate, eid, _ = moe._gates(p["router"], x.reshape(T, -1), cfg)
+    return cfg, p, x, gate, eid, C
+
+
+def _bf16_spacing(x: torch.Tensor) -> torch.Tensor:
+    """The distance from each bf16 value to the next one away from zero
+    (the smallest normal's at zero)."""
+    m, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(m), e - 8)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cell", list(CARD_CELLS))
+def test_card_plan_kernel_is_the_cumsum_plan(cell):
+    """``moe_plan`` on the card: dest and valid equal the plain version
+    and the cumsum plan bit for bit, src the plain version's; one
+    launch."""
+    dev = _card()
+    cfg, _, _, _, eid, C = _card_plan(cell, dev)
+    n = cfg.moe.held()
+    n0 = build.LAUNCHES["moe_plan"]
+    dest, valid, src = moe.moe_kernels.plan(eid, 0, n, C)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["moe_plan"] == n0 + 1
+    want = ref.moe_plan_ref(eid, 0, n, C)
+    for got, w in zip((dest, valid, src), want):
+        assert torch.equal(got, w)
+    cs_dest, cs_valid = ref.moe_cumsum_plan_ref(eid, 0, n, C)
+    assert torch.equal(dest, cs_dest) and torch.equal(valid, cs_valid)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cell", list(CARD_CELLS))
+def test_card_gather_kernels_are_their_plain_versions(cell):
+    """Both gathers in each of their uses on the card, at a cell's
+    shapes: dispatch (slot rows), combine (gated sums), combine's
+    backward (gated slot rows and the gates' dot products) and
+    dispatch's backward (sums) bit for bit against the plain versions,
+    the dot products within the f32 rounding of a sum in another
+    order."""
+    dev = _card()
+    cfg, p, x, gate, eid, C = _card_plan(cell, dev)
+    K, n = cfg.moe.top_k, cfg.moe.held()
+    dest, valid, src = moe.moe_kernels.plan(eid, 0, n, C)
+    xf = x.reshape(-1, cfg.d_model)
+    T = xf.shape[0]
+    g = torch.Generator(device=dev).manual_seed(5)
+    ye = torch.randn(n * C, cfg.d_model, generator=g, device=dev
+                     ).to(torch.bfloat16)
+    dy = torch.randn(T, cfg.d_model, generator=g, device=dev
+                     ).to(torch.bfloat16)
+    w = (gate * valid.reshape(T, K)).to(torch.bfloat16).reshape(-1)
+    kg = moe.moe_kernels
+    n0 = dict(build.LAUNCHES)
+    cases = [(kg.slot_gather(xf, src, K), ref.slot_gather_ref(xf, src, K)),
+             (kg.assign_gather(ye, dest, K, w),
+              ref.assign_gather_ref(ye, dest, K, w)),
+             (kg.assign_gather(ye, dest, K), ref.assign_gather_ref(ye, dest,
+                                                                   K))]
+    dye, dots = kg.slot_gather(dy, src, K, w, ye)
+    want_dye, want_dots = ref.slot_gather_ref(dy, src, K, w, ye)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["moe_slot_gather"] == n0["moe_slot_gather"] + 2
+    assert build.LAUNCHES["moe_assign_gather"] == n0["moe_assign_gather"] + 2
+    for got, want in cases + [(dye, want_dye)]:
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    # each dot an f32 sum of d rounded products in another order: within
+    # d f32 roundings of the sum of their magnitudes
+    mag = ref.slot_gather_ref(dy.abs(), src, K, None, ye.abs())[1]
+    assert bool(((dots - want_dots).abs()
+                 <= cfg.d_model * 2.0 ** -24 * mag).all())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cell", list(CARD_CELLS))
+def test_card_layer_is_the_parent_formulation(cell):
+    """The whole MoE layer on the card at a cell's widths, slot map
+    against the formulation before it: the output and the expert
+    weights' gradients bit for bit, the gates' gradient within one bf16
+    spacing of the parent's (its f32 sums over d in another order), the
+    input's and the router's within the roundings of a K-term bf16 sum
+    in another order."""
+    dev = _card()
+    cfg, p, x = _card_layer(cell, dev)
+    K = cfg.moe.top_k
+    T = x.shape[0] * x.shape[1]
+    dy = torch.randn(x.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(7), device=dev).to(torch.bfloat16)
+
+    def run(fn):
+        pt = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xt = x.clone().requires_grad_(True)
+        gate_grads = []
+        real = moe._gates
+
+        def gates(router, xf, c):
+            gate, eid, aux = real(router, xf, c)
+            gate.register_hook(gate_grads.append)
+            return gate, eid, aux
+        moe._gates = gates
+        try:
+            y, aux = fn(pt, xt, cfg)
+        finally:
+            moe._gates = real
+        names = sorted(pt)
+        grads = torch.autograd.grad((y.float() * dy.float()).sum() + aux,
+                                    [pt[k] for k in names] + [xt])
+        return y, dict(zip(names + ["x"], grads)), gate_grads[0]
+
+    n0 = dict(build.LAUNCHES)
+    y, g, dgate = run(moe._moe_apply_dense)
+    torch.cuda.synchronize()
+    assert {k: build.LAUNCHES[k] - n0[k] for k in
+            ("moe_plan", "moe_slot_gather", "moe_assign_gather")} == {
+        "moe_plan": 1, "moe_slot_gather": 2, "moe_assign_gather": 2}
+    py, pg, pdgate = run(_parent_moe_dense)
+    assert torch.equal(y, py)
+    for k in ("we_g", "we_u", "we_d"):
+        assert torch.equal(g[k], pg[k]), k
+    # dgate is f32 of a bf16 value times valid: one bf16 spacing apart
+    assert dgate.shape == (T, K)
+    assert bool(((dgate - pdgate).abs() <= _bf16_spacing(pdgate)).all())
+    tol = 2 * (K - 1) * 2.0 ** -9       # K - 1 bf16 adds on each side
+    assert _gap(g["x"].float(), pg["x"].float()) < tol
+    assert _gap(g["router"], pg["router"]) < tol
+
+
+@pytest.mark.card
+def test_card_training_step_launches_the_kernels_on_every_layer_call():
+    """One training step of reduced DeepSeekMoE (2 MoE layers, 2
+    micro-batches, remat) on the card: per layer call one plan and one
+    of each gather in the forward and again in its recompute, and one of
+    each gather in the backward."""
+    dev = _card()
+    cfg = get_config("deepseek-moe-16b").reduced().replace(
+        compute_dtype="bfloat16", grad_accum=2)
+    assert cfg.remat and cfg.n_layers == 2
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    batch = {k: v.to(dev) for k, v in make_batch(cfg, 64, 4, step=0).items()}
+    build.reset_launches()
+    steps._grads(model, params, batch, cfg.grad_accum)
+    torch.cuda.synchronize()
+    calls = cfg.n_layers * cfg.grad_accum
+    assert {k: build.LAUNCHES[k] for k in
+            ("moe_plan", "moe_slot_gather", "moe_assign_gather")} == {
+        "moe_plan": 2 * calls, "moe_slot_gather": 3 * calls,
+        "moe_assign_gather": 3 * calls}
