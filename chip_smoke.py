@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100): a gate
+of bitwise and launch checks. Step time, MFU and the profile breakdown
+are the benchmark's (``chipbench/``); the times printed here size the
+kernels against their plain versions and byte bounds.
 
-    python3 chip_smoke.py            # every phase, full-width gpt2-l
+    python3 chip_smoke.py                    # every phase, full-width gpt2-l
+    python3 chip_smoke.py --only kernels     # the build, phases 2, A, X, M
     python3 chip_smoke.py --only families    # the build and phase I
     python3 chip_smoke.py --only serve       # the build and phase J
     python3 chip_smoke.py --only dist        # the build and phase K
     python3 chip_smoke.py --only roof        # the build and phase L
-    python3 chip_smoke.py --only trace       # the build and phase T
     python3 chip_smoke.py --only head        # the build and phase X
     python3 chip_smoke.py --only moe         # the build and phase M
 
@@ -20,201 +23,91 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    {1, 11, 103}, k == 0, bfloat16), and time kernel, plain version and
    the nearest single PyTorch call over one step's worth of leaves; then
    the same for K8-K13, the packed and quant8 compressors (bitwise, K8's
-   indices also equal to K1's), with their edge cases (ragged last
-   block, all-zero block, ties, half steps, bf16 params, k == 0). K1 and
-   K8 also meet the selection's adversarial inputs (``_select_inputs``:
-   signed zeros, blocks with exactly and fewer than k nonzeros, an
-   embedding-like tensor, heavy tails, many tied maxima) at k in {1, 2,
-   11, 31, 32, 33, 103, 1024}; K1 is timed at k = 1, 11 and 32
-   (``[diagnose]``), and each timed input set prints the share of its
-   blocks that the selection takes through each path (``[paths]``);
+   indices also equal to K1's), with their edge cases. K1 and K8 also
+   meet the selection's adversarial inputs (``_select_inputs``) at k in
+   ``SELECT_KS``, and each input set prints the share of its blocks
+   that the selection takes through each path (``[paths]``);
 A. hold K5-K7 (the int8/int4 row-span codec) against their plain
    versions, bitwise, on every gpt2-l leaf as LowDiff+ quantizes it and
    on edge cases (cols 1 and odd, n 1 and 9, zero rows, bf16 leaves, a
    row wider than the grid's shared memory, which K5 packs on its
    two-pass path), and K5/K6 against the numpy codec on a row slice of
-   each leaf; print K5's plan per leaf and the rows and elements of each
-   of its paths (``[paths] span_pack``); time them over one step's worth
-   of rows (K5 at int8 and int4, K6 beside ``torch.mul(q, scale)``);
-X. the loss head on tensor cores (``phase_head``; ``--only head`` runs
-   the build and this phase alone): at DeepSeekMoE's and gpt2-l's chunk
-   shapes, ``xent_rows`` and ``xent_grad_split`` against their plain
-   versions and timed against their byte bounds; one micro-batch of the
-   head's forward + backward through ``_TensorCoreXent`` against the
-   up-cast path (loss, dh, dW, time, peak memory; one launch of each
-   kernel per chunk), the control (the logit gradient rounded once to
-   bf16), which must fail that comparison, and a profile of it in which
-   no GEMM runs on CUDA cores (``[head]`` lines); phases 3, 4, C, D, F,
-   I then require the head's kernels once a chunk per micro-batch and
-   step of their own training;
-M. the MoE dispatch through a slot map (``phase_moe``; ``--only moe``
-   runs the build and this phase alone): at the benchmark's MoE cells'
-   shapes (T 4096, K 6, d 2048, C 480; 64 experts held, and 32 of 64)
-   ``moe_plan``, ``moe_slot_gather`` and ``moe_assign_gather`` in each
-   of their uses against their plain versions (bitwise; the gates' dot
-   products within the f32 rounding of a sum in another order) and the
-   plan against the cumsum plan, each timed against its byte bound and
-   its plain version; then the dispatch and the combine, forward and
-   backward, through the slot map against the formulation before it
-   (cumsum plan, scatter-adds, gathers from a drop row): outputs and
-   expert-buffer gradients bitwise, time and peak memory (``[moe]``
-   lines);
-3. drive the LowDiff path: ``LowDiff`` on full-width gpt2-l (batch 4,
-   seq 64, the CLI's f=20, b=2), resumed at step 19 so that its 20 steps
-   write a full and then the longest chain those defaults produce (19
-   differentials); flush, inject a failure, recover with device replay
-   and require the recovered params/opt to equal the trained ones bit
-   for bit; recover again with the default parallel replay, within its
-   reassociation tolerance, and report its time and peak device memory;
-   check that K1, K2 and K4 launched; K4 and K2 are held to their
-   plain versions on the last step's own leaves and payload, and after
-   the flush K1 is held to its plain version and timed on the run's own
-   error-feedback residual (``[residual]``; launches of these checks
-   are not counted as the path's);
-4. three ``--strategy none`` (dense) steps, which launch K3; K3 is held
-   to its plain version on the last step's leaves;
-B. drive the LowDiff+ path: ``LowDiffPlus`` (incremental, row, int4
-   with int8 moments) on gpt2-l at full width, cut in depth to 6 of its
-   36 layers (its host-bound numpy replica dominated the script at full
-   depth; 12 layers until phase I came), for 3 steps (one full, two quantized patches), flush; require
-   software recovery == the replica bitwise, ``load_state_device`` (K7)
-   == ``load_latest_state`` bitwise, every recovered value within one
-   quantization step of the replica, and K7 launched;
-C. phase 3 with ``--compressor packed`` (K8, K9, K10) on gpt2-l cut in
-   depth to 12 of 36 layers, at the length of a short run: f=4, b=2,
-   resumed at step 3, so 4 steps write a full at step 4 and 3
-   differentials; fail at step 7, recover by device replay (bitwise) and
-   by parallel replay (within tolerance); K8 on the run's residual as K1
-   in phase 3;
-D. the same with ``--compressor quant8`` (K11, K12, K13; no error
-   feedback);
-E. the paper's baselines on full-width gpt2-l, dense steps (K3), each
-   in its own checkpoint directory: FullSync and CheckFreq (interval 2,
-   steps 1-3) recover the step-2 state and Gemini (a host copy every
-   step) the step-3 state, bitwise; NaiveDC (rho 0.01, a full at step 3,
-   differentials 4 and 5; K1 compresses the 3-Psi delta, K2 decodes it
-   in recovery) recovers what the plain versions' decode and pairwise
-   merge give, bitwise, and prints its lossy gap; K1, K2 and K3 held
-   bitwise against their plain versions on the phase's own leaves; one
-   line per strategy (first and later step ms, ``ckpt_time``, bytes,
-   recovery ms), then the failure simulator fed the measured constants;
-F. gradient accumulation at full width: granite-3-8b (bf16 params,
-   grad_accum 2) cut to 4 layers through phase 3's path (f=4, b=2,
-   resumed at step 3; device replay bitwise, parallel replay within its
-   tolerance; K4 and K2 held on its bf16 leaves), and three dense steps
-   of full stablelm-1.6b (K3 held on its leaves);
-G. the storage tiers: LowDiff top-k + EF (K1, K2, K4) through stores
-   that ``StoreConfig.build()`` makes as ``--backend``/``--format`` make
-   them, each recovered by device replay bitwise equal to the trained
-   state: G1 the RAM tier (20,480 MB: above one gpt2-l full, below two)
-   over local frames on full gpt2-l, f=2 b=2 resumed at step 1 (full 2,
-   diff 3, full 4, diff 5), the older full written back and then
-   evicted, recovery from RAM and again after close() through a
-   local-only store; G2 4 shards, G3 a remote ``file://`` bucket in 4
-   MiB chunks under its RAM tier (recovered again from the bucket
-   alone), G4 local npz, each on gpt2-l cut to 4 layers through phase
-   C's chain; one ``[tier]`` line per stack (full put ms, write-back and
-   flush ms, bytes, evictions, chunks, retries, recovery ms, peak RSS);
-H. maintenance, journal segments and the peer tier: H1 LowDiff (f=2,
-   b=2, steps 2..5) on gpt2-l at full width cut to 8 of 36 layers (full
-   depth until phase I came, 12 until phase K) through ``EngineConfig(maintenance=
-   True).build_store()`` over ``StoreConfig(tiers=[peer(replicas=2,
-   simulate_peers=True), local], retention_fulls=1, host_id="h0")``:
-   after ``flush()`` the service's GC has removed full 2's chain from
-   the manifest and the disk and the peers hold only full 4's chain; an
-   on-demand scrub verifies every blob and quarantines none; recovery
-   through the local tier is bitwise; then the host is lost (store
-   closed, node removed from the hub, root deleted) and a store for h1
-   on an empty root adopts the manifest from the peers and recovers
-   from peer memory, bitwise. H2 on the 4-layer cut over the local tier
-   (retention 1, GC slices of one key): the worker is killed at
-   ``gc:swept_slice``, a new service on the same root finishes the
-   sweep from the journaled cursor and recovery is bitwise; one byte of
-   the newest differential is flipped on disk, the scrub quarantines
-   exactly it, and recovery returns the step-4 state bitwise. H3:
-   phase B's path on the 4-layer cut, 4 steps, ``fold_interval=2``,
-   with the service, which must fold the chain (K7 on its recovery).
-   One ``[maint]`` line each (GC plan/sweep ms and keys, scrub ms and
-   bytes, ``flush()`` ms, bytes replicated, acks, ``peer_reads``,
-   recovery ms from peers and from the local tier, peak RSS);
-I. the other model families at full width (``FAMILIES``), each through
-   phase C's path with top-k (LowDiff + EF, f=4, b=2, resumed at step 3:
-   a full at step 4 and 3 differentials; failure; device replay bitwise
-   equal to the trained state; K4 and K2 held on the last step's own
-   leaves and payload, K1 on the run's own EF residual): DeepSeekMoE cut
-   to 2 of 28 layers (bf16, grad_accum 2, 64 routed experts, capacity 16
-   at 128 tokens a micro-batch, so the router drops; its parallel replay
-   too, within tolerance), Hymba cut to 8 of 32 layers with global
-   attention at layers 0, 3 and 7 (batch 2 x seq 2048: the 1024-token
-   window binds, the Mamba scan runs 16 chunks), xLSTM cut to 12 of 24
-   blocks (batch 4 x seq 256: 2 mLSTM chunks), Pixtral cut to 1 of 40
-   layers (bf16, grad_accum 2, 32 patches) and Seamless cut to 6 + 6 of
-   12 + 12 layers (16 source frames); xLSTM and Seamless ran at full
-   depth until phase K came. One ``[family]`` line each (config and cut, params,
-   state bytes, median step ms, payload bytes, recovery ms, peak device
-   memory, K1/K2/K4 launches). Qwen3-MoE stays off the card (one
-   full-width layer is 3.73 B params); ``--only families`` runs the
-   build and this phase alone;
-J. serving at full width and full depth, Hymba cut to 16 of 32 layers
-   (``phase_serve``): J1 gpt2-l served by ``serve.run`` from a full that
-   one LowDiff step wrote (``load_params`` bitwise equal to the trained
-   params; decode at the prompt's last position equal to ``logits_fn``;
-   reduced gpt2-l decoded on the card as on the CPU); J2 qwen2-1.5b,
-   DeepSeekMoE, Pixtral, Hymba (past its window), xLSTM and Seamless
-   (prefilled cross K/V), each decoded from a seeded init against its
-   prefill. The decode path launches no kernel but the MoE layer's
-   (the reference's is plain ``jnp`` too). One ``[serve]`` line per model (params, weight and
-   cache bytes, first and median step ms, tok/s, peak device memory);
-   ``--only serve`` runs the build and this phase alone
-   (``--only hymba-f32`` decodes J2's Hymba alone with f32 compute);
-K. the distributed layer (``phase_dist``) on a ``torch.distributed``
-   NCCL group of one rank, initialised through a ``FileStore`` (the
-   phase fails if NCCL does not initialise; multi-rank worlds run on
-   the CPU under gloo in the tests, since NCCL refuses two ranks on one
-   device), full-width, full-depth gpt2-l, batch 4 x seq 64: K1 three
-   ``make_sharded_train_step(mode="lowdiff_sharded")`` steps on the live
-   (1, 1) mesh, step by step against the unsharded ``lowdiff_plus`` step
-   followed by ``compress_tree``, from the same init and batches: state,
-   loss and payload bitwise equal; K2 the shard-local compression of
-   K1's last gradient under the abstract (data 2, model 4) layout, each
-   distinct local block through K1 in this process, rank by rank, each
-   bitwise equal to K1's plain version on the same block, the rows in
-   the reference's ``out_spec`` order; K3 the sharded prefill (B 8,
-   prompt 16) and 8 sharded decode steps against ``logits_fn`` and
-   ``decode_step``, bitwise, logits and cache. ``[dist]`` lines: step
-   ms, launches, K2's blocks and ms; ``--only dist`` runs the build and
-   this phase alone;
-L. the analysis against the card (``phase_roof``): its fake runs (L3's
-   composed gpt2-l steps, L4's memory estimate, L5's production
-   combination; ~35 CPU s) run in a child process (``--roof-cpu``)
-   started after the build, beside phases 2-K. L1 a 1 GiB device copy
-   against ``HBM_BW``; three ``lowdiff_sharded`` steps of full gpt2-l on
-   an NCCL group of one rank (their median and peak device memory), then
-   19 top-k differentials of seeded gradients applied by
-   ``replay_device`` from the card (the apply loop without the upload);
-   L2 ``replay_roofline`` of phase 3's chain against that loop and phase
-   3's device recovery; L3 the composed dense and ``lowdiff_sharded``
-   steps' terms and bound against phase 4's, phase 3's, phase K's and
-   this phase's medians; L4 the dry run's ``peak_bytes_est`` against the
-   measured peak, within ``ROOF_TOL`` (25%); L5 ``lower_combo`` of
-   qwen2-1.5b x train_4k on a fake group of 256 ranks. ``[roof]`` lines
-   with the card's name and power limit. ``--only roof`` runs the build
-   and this phase alone (with 3 dense steps of its own for L3). Rehearse
-   on the CPU: call ``_roof_cpu(path)``, then ``phase_roof`` with a
-   reduced gpt2-l, ``torch.device("cpu")``, ``backend="gloo"``, a finished
-   child, the ``torch.cuda`` calls and ``fail`` stubbed: only L4 and the
-   launch check of the dense steps fail (~40 s);
-T. the tracer on the card, alone (``--only trace``, ``phase_trace``):
-   the host cost of an empty span (off, on, on with the card's clock);
-   then the benchmark's ``gpt2l.lowdiff.topk`` and ``gpt2l.dense``,
-   each built by ``chipbench`` from its seed, in 8 blocks of 20 steps
-   with tracing off, on, on, off, ...: each block's step time, the
-   benchmark's readers of the step's spans over each traced block, each
-   phase inside its step on the card, and the card-to-host clock
-   mapping against a second anchor after each traced block (within
-   0.5 ms); then one profiled step, whose ``topk_apply_kernel`` (or
-   ``adam_kernel``) launches must each lie under a ``step.apply``
-   ``gpu_user_annotation``;
+   each leaf; print K5's plan and phases per leaf shape; time them over
+   one step's worth of rows;
+X. the loss head on tensor cores (``phase_head``): at DeepSeekMoE's and
+   gpt2-l's chunk shapes, ``xent_rows`` and ``xent_grad_split`` against
+   their plain versions, timed against their byte bounds; one
+   micro-batch of the head's forward + backward through
+   ``_TensorCoreXent`` (one launch of each kernel a chunk) against the
+   up-cast path, the control (the logit gradient rounded once to bf16),
+   which must fail that comparison, and a profile in which no GEMM runs
+   on CUDA cores; phases 3, 4, C, D, F, I then require the head's
+   kernels once a chunk per micro-batch and step of their own training;
+M. the MoE dispatch through a slot map (``phase_moe``): at the MoE
+   cells' shapes, ``moe_plan`` (also against the cumsum plan),
+   ``moe_slot_gather`` and ``moe_assign_gather`` in each of their uses
+   against their plain versions, each timed against its byte bound; the
+   dispatch and the combine, forward and backward, against the
+   formulation before the slot map: outputs and expert-buffer gradients
+   bitwise, one launch of the plan and two of each gather;
+3. LowDiff top-k + EF on full-width gpt2-l (batch 4, seq 64, f=20,
+   b=2), resumed at step 19 so that its 20 steps write a full and 19
+   differentials, traced: the tracer's clock mapping within
+   ``TRACE_CLOCK_TOL_S`` of a second anchor at the end of the run, one
+   ``step`` span a step, every ``step.*`` inside its step on the card,
+   the phases' card time not over the steps'; the last step profiled,
+   each ``topk_apply_kernel`` under ``step.apply``; K4 and K2 held to
+   their plain versions on the last step's own leaves and payload;
+   flush, fail, recover by device replay (bitwise) and by the default
+   parallel replay (within its reassociation tolerance); K1 held to its
+   plain version on the run's own error-feedback residual; K1, K2, K4
+   launched;
+4. three dense steps, the last profiled (each ``adam_kernel`` under
+   ``step.apply``); K3 held to its plain version on its leaves;
+B. LowDiff+ (incremental, row, int4 with int8 moments) on gpt2-l cut to
+   6 of 36 layers, 3 steps, flush: software recovery == the host
+   replica bitwise, ``load_state_device`` (K7) == ``load_latest_state``
+   bitwise, within one quantization step of the replica, K7 launched;
+C. phase 3's flow with ``--compressor packed`` (K8-K10) on gpt2-l cut
+   to 12 layers, f=4, resumed at step 3 (a full and 3 differentials);
+D. the same with ``--compressor quant8`` (K11-K13; no error feedback);
+E. the paper's baselines on full gpt2-l, dense steps: FullSync and
+   CheckFreq recover the step-2 state, Gemini the step-3 state,
+   bitwise; NaiveDC recovers what the plain versions' decode and
+   pairwise merge give, bitwise; K1, K2 and K3 held on the phase's own
+   leaves; then the failure simulator fed the measured constants;
+F. granite-3-8b (bf16 params, grad_accum 2) cut to 4 layers through
+   phase C's flow (K4 and K2 held on its bf16 leaves), and three dense
+   steps of full stablelm-1.6b (K3 held);
+G. the storage tiers through ``StoreConfig.build()``, each recovered by
+   device replay bitwise: G1 the RAM tier over local frames on full
+   gpt2-l (the older full written back and evicted; recovery again
+   after close() through the local tier), G2 4 shards, G3 a remote
+   ``file://`` bucket under its RAM tier (recovered again from the
+   bucket alone), G4 local npz, on gpt2-l cut to 4 layers;
+H. maintenance: H1 (8 layers) through a peer tier over local frames:
+   GC, peer prune, scrub, recovery from the local tier and, after the
+   host is lost, from peer memory on a new host; H2 (4 layers): the
+   worker killed mid-sweep and resumed, a flipped byte quarantined and
+   the chain cut there; H3: LowDiff+ folding on the service;
+I. the other families at full width (``FAMILIES``) through phase C's
+   flow with top-k; the MoE family launches ``MOE_KERNELS``;
+J. serving (``phase_serve``): gpt2-l served from a full one LowDiff
+   step wrote (``load_params`` bitwise, decode against ``logits_fn``,
+   reduced gpt2-l on the card as on the CPU); the other families
+   decoded from a seeded init against their prefill;
+K. the distributed layer on an NCCL group of one rank: three
+   ``lowdiff_sharded`` steps of full gpt2-l against ``lowdiff_plus`` +
+   ``compress_tree`` (state, loss, payload bitwise), the shard-local
+   compression under an abstract (2, 4) layout against K1's plain
+   version, the sharded prefill and decode against the unsharded,
+   bitwise;
+L. the analysis against the card (``phase_roof``), its fake runs in a
+   child process (``--roof-cpu``) started after the build: L4 the dry
+   run's ``peak_bytes_est`` of the ``lowdiff_sharded`` step against the
+   peak of three such steps on the card, within ``ROOF_TOL``; L5
+   ``lower_combo`` of qwen2-1.5b x train_4k on a fake group of 256
+   ranks;
 5. print the ``kernels`` JSON line, the card's name and power limit,
    and the result line.
 
@@ -521,14 +414,6 @@ def phase_parity(cfg, dev, reps: int = REPS):
     log("[parity] K1 topk_select: indices and values exactly equal on "
         "every leaf")
     ms = timed(lambda: [topk.topk_select(x, k) for x in xs], reps)
-    # what the selection costs per k: k = 1 is the load with one pick,
-    # the slope to k = 32 what each further pick adds
-    diag = {kk: timed(lambda kk=kk: [topk.topk_select(x, kk) for x in xs],
-                      reps) for kk in (1, 11, 32)}
-    log("[diagnose] K1 topk_select over one step's leaves: "
-        + " ".join(f"k={kk}: {t:.4f} ms" for kk, t in diag.items())
-        + f"; slope (k=32 - k=1) / 31 = {(diag[32] - diag[1]) / 31:.4f} "
-        f"ms per pick")
     for kk in (k, 32):
         log(f"[paths] K1 random leaves k={kk}: "
             f"{_fmt_shares(_path_shares(xs, kk))}")
@@ -1288,7 +1173,8 @@ def _head_check(cfg, dev, seq: int, steps: int, tag: str) -> None:
 def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
                steps: int = 20, start: int = 19, full_interval: int = 20,
                tag: str = "", batch: int = 4, seq: int = 64,
-               parallel: bool = True, stats: dict = None):
+               parallel: bool = True, stats: dict = None,
+               traced: bool = False):
     """LowDiff with ``compressor`` on the model of ``cfg`` (full width;
     gpt2-l in phases 3, C, D, granite in phase F, the other families in
     phase I) on ``batch`` x ``seq`` batches, resumed at step ``start``:
@@ -1299,19 +1185,15 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
     compressor's kernels to have launched, and the loss head's kernels
     once a chunk per micro-batch and step (``_head_check``). With top-k,
     K4 and K2 are also held against their plain versions on the last
-    step's own leaves and payload. Returns (launch counts of this run, payload bytes of
-    the last step); ``stats`` (a dict) receives the state bytes, the
-    step times, the training and recovery peaks of device memory and the
-    recovery times."""
+    step's own leaves and payload. With ``traced``, the run's spans meet
+    ``_trace_checks`` and its last step is profiled: every launch of the
+    compressor's apply kernel lies under ``step.apply``. Returns (launch
+    counts of this run, payload bytes of the last step); ``stats`` (a
+    dict) receives the state bytes, the step times, the training peak of
+    device memory and the recovery times."""
     import torch
-    from repro_torch import tree_leaves
     from repro_torch.checkpoint.config import StoreConfig
-    from repro_torch.checkpoint.io import COPY_METER
     from repro_torch.compression.sparse import tree_nbytes
-    from repro_torch.core.lowdiff import LowDiff
-    from repro_torch.core.steps import init_state
-    from repro_torch.data.synthetic import TokenStream
-    from repro_torch.kernels import build
     from repro_torch.models.registry import build_model
     from repro_torch.obs.trace import TRACER
     tag = tag or ("[main]" if compressor == "topk" else f"[{compressor}]")
@@ -1324,22 +1206,12 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
         f"{'' if compressor == 'quant8' else ' + EF'}, f={full_interval}, "
         f"b=2, batch {batch} x seq {seq}, steps {start + 1}..{fail_at}, "
         f"device replay{' then parallel replay' if parallel else ''}")
-    TRACER.clear()
-    TRACER.enable()
+    if traced:
+        TRACER.clear()
+        TRACER.enable()
     store = StoreConfig(ckdir).build()
-    strat = LowDiff(model, store, rho=0.01, lr=1e-3,
-                    full_interval=full_interval, batch_size=2,
-                    compressor=compressor, replay_device=True, device=dev,
-                    flush_timeout=3600.0)
-    state = init_state(model, 0, device=dev)
-    state["step"] = torch.tensor(start, dtype=torch.int32, device=dev)
-    state_bytes = sum(t.numel() * t.element_size()
-                      for t in tree_leaves(state))
-    stream = TokenStream(cfg, seq, batch, seed=0, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    build.reset_launches()
-    step_ms, losses, diff_bytes, last = [], [], [], []
+    strat = _lowdiff_maker(model, dev, full_interval, compressor)(store)
+    diff_bytes, last = [], []
     orig_step = strat.step_fn
 
     def step_fn(st, b):             # records each step's payload size
@@ -1349,101 +1221,43 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
             last[:] = [st, out[2]]  # and the last step's inputs
         return out
     strat.step_fn = step_fn
-    for t in range(steps):
-        batch = next(stream)
-        t0 = time.perf_counter()
-        state, metrics = strat.train_step(state, batch)
-        torch.cuda.current_stream(dev).synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
+    kname = f"{PATH_KERNELS[compressor][2]}_kernel" if traced else None
+    state, step_ms, _ = _lowdiff_train(
+        cfg, model, dev, strat, start, steps, tag, batch=batch, seq=seq,
+        profile=kname)
     train_peak = torch.cuda.max_memory_allocated(dev)
+    if traced:
+        _trace_checks(step_ms, tag)
+        TRACER.disable()
+        TRACER.clear()
     _head_check(cfg, dev, seq, steps, tag)
-    if not all(math.isfinite(l) for l in losses):
-        fail(f"non-finite loss {losses}")
-    log(f"{tag} step_ms={[round(s, 3) for s in step_ms]} "
-        f"losses={[round(l, 5) for l in losses]}")
-    log(f"{tag} differential bytes per step: {diff_bytes[-1]} "
-        f"(dense f32 gradient {4 * model.n_params()})")
+    log(f"{tag} step_ms={[round(s, 3) for s in step_ms]}; differential "
+        f"bytes per step: {diff_bytes[-1]} (dense f32 gradient "
+        f"{4 * model.n_params()})")
     if last:
         _lowdiff_kernel_checks(*last, state, tag)
         del last[:]
-    trained = [t.clone() for t in tree_leaves(state["params"])
-               + tree_leaves(state["opt"])]
-    t0 = time.perf_counter()
+    trained = _clones(state)
     strat.flush()
-    flush_s = time.perf_counter() - t0
     if compressor in ("topk", "packed"):
         _residual_check(state, compressor)
     log(f"*** injected failure at step {fail_at} ***")
+    state_bytes = _tree_nbytes(state)
     del state
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    state, applied = strat.recover()
-    torch.cuda.synchronize()
-    rec_ms = (time.perf_counter() - t0) * 1e3
-    rec_peak = torch.cuda.max_memory_allocated(dev) - base
-    recovered = tree_leaves(state["params"]) + tree_leaves(state["opt"])
-    if int(state["step"]) != fail_at or applied != steps - 1:
-        fail(f"recovered step {int(state['step'])}, applied {applied}")
-    if len(recovered) != len(trained) or not all(
-            bits_equal(a, b) for a, b in zip(trained, recovered)):
-        fail("recovered params/opt differ from the trained state")
-    log(f"{tag} recovered at step {int(state['step'])}; {applied} "
-        f"differentials replayed; params+opt bitwise equal to the trained "
-        f"state ({len(trained)} leaves)")
-    spans = {}
-    for name, _, _, _, t0_, t1_, _ in TRACER.events():
-        spans[name] = spans.get(name, 0.0) + (t1_ - t0_) * 1e3
-    TRACER.disable()
-    log(f"{tag} snapshot_ms(d2h, all snapshots)="
-        f"{spans.get('snapshot.d2h', 0.0):.1f} "
-        f"persist_full_ms={spans.get('store.save_full', 0.0):.1f} "
-        f"persist_batch_ms={spans.get('store.save_batch', 0.0):.1f} "
-        f"flush_s={flush_s:.2f} recovery_ms={rec_ms:.1f} "
-        f"(load_chain_ms={spans.get('recovery.load_chain', 0.0):.1f} "
-        f"replay_ms={spans.get('recovery.replay', 0.0):.1f}) "
-        f"full_bytes={store.manifest['fulls'][0]['bytes']} "
-        f"copy_meter={COPY_METER.stats()}")
-
+    rec_ms = _recover_check(strat, trained, fail_at, steps - 1, tag,
+                            "by device replay")
+    par_ms = None
+    if parallel:                # the default recovery, of the same chain
+        strat.replay_device = False
+        if not strat.parallel_recovery:
+            fail("LowDiff's default recovery is not parallel replay")
+        par_ms = _recover_check(strat, trained, fail_at, steps - 1, tag,
+                                "by parallel replay (the default)",
+                                exact=False)
     if stats is not None:
         stats.update(state_bytes=state_bytes, step_ms=step_ms,
-                     train_peak=train_peak, rec_ms=rec_ms,
-                     rec_peak=rec_peak, losses=losses)
-    # the default recovery: parallel replay of the same chain
-    del state, recovered
-    torch.cuda.empty_cache()
-    if not parallel:
-        del trained
-        return _main_done(strat, ckdir, tag, compressor), diff_bytes[-1]
-    strat.replay_device = False
-    if not strat.parallel_recovery:
-        fail("LowDiff's default recovery is not parallel replay")
-    base = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    state, applied = strat.recover()
-    torch.cuda.synchronize()
-    par_ms = (time.perf_counter() - t0) * 1e3
-    par_peak = torch.cuda.max_memory_allocated(dev) - base
-    if int(state["step"]) != fail_at or applied != steps - 1:
-        fail(f"parallel recovery: step {int(state['step'])}, applied "
-             f"{applied}")
-    ratio = _replay_close(tree_leaves(state["params"])
-                          + tree_leaves(state["opt"]), trained, applied)
-    if not ratio <= 1.0:
-        fail(f"parallel recovery differs from the trained state beyond "
-             f"the reassociation tolerance (ratio {ratio})")
-    log(f"{tag} parallel recovery (the default) of {applied} "
-        f"differentials: recovery_ms={par_ms:.1f} peak device memory "
-        f"above the trained copy {par_peak} B (device replay: "
-        f"recovery_ms={rec_ms:.1f}, peak {rec_peak} B); within the "
-        f"reassociation tolerance of the trained state (largest ratio "
-        f"{ratio:.4f})")
-    if stats is not None:
-        stats.update(par_ms=par_ms, par_peak=par_peak, par_ratio=ratio)
-    del state, trained
+                     train_peak=train_peak, rec_ms=rec_ms, par_ms=par_ms)
+    del trained
     return _main_done(strat, ckdir, tag, compressor), diff_bytes[-1]
 
 
@@ -1467,14 +1281,16 @@ def _main_done(strat, ckdir: str, tag: str, compressor: str) -> dict:
 # ---------------------------------------------------------------- phase 4
 def phase_dense(cfg, dev, steps: int = 3, tag: str = "[dense]"):
     """``steps`` dense (``--strategy none``) steps, which launch K3 (and
-    the loss head's kernels, ``_head_check``), then K3 held against its
-    plain version on the last step's leaves.
+    the loss head's kernels, ``_head_check``), the last one traced and
+    profiled: each K3 launch lies under ``step.apply`` (``_profiled``);
+    then K3 held against its plain version on the last step's leaves.
     Returns (launch counts, step ms)."""
     import torch
     from repro_torch.core.steps import init_state, make_train_step
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import build
     from repro_torch.models.registry import build_model
+    from repro_torch.obs.trace import TRACER
     model = build_model(cfg)
     state = init_state(model, 0, mode="dense", device=dev)
     step = make_train_step(model, mode="dense")
@@ -1482,10 +1298,17 @@ def phase_dense(cfg, dev, steps: int = 3, tag: str = "[dense]"):
     torch.cuda.synchronize()
     build.reset_launches()
     step_ms, losses = [], []
-    for _ in range(steps):
+    for i in range(steps):
         b, prev = next(stream), state
         t0 = time.perf_counter()
-        state, metrics, _ = step(state, b)
+        if i == steps - 1:
+            TRACER.enable()
+            state, metrics, _ = _profiled(lambda: step(state, b),
+                                          "adam_kernel", tag)
+            TRACER.disable()
+            TRACER.clear()
+        else:
+            state, metrics, _ = step(state, b)
         torch.cuda.current_stream(dev).synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
@@ -2070,14 +1893,12 @@ FAMILIES = (
     # past the cut stack. seq 2048 > the 1024 window, 16 Mamba chunks
     ("[hybrid]", "hymba-1.5b",
      {"n_layers": 8, "global_attn_layers": (0, 3, 7)}, 2, 2048, False),
-    # 12 of 24 blocks (full depth until phase K came: its eager sLSTM
-    # loop, ~9 s a step, held the script near its time limit); seq 256
+    # 12 of 24 blocks (its eager sLSTM loop takes ~9 s a step); seq 256
     # carries the mLSTM across 2 chunks
     ("[ssm]", "xlstm-350m", {"n_layers": 12}, 4, 256, False),
     # 1 of 40 layers: the projector and the masked patches are new
     ("[vlm]", "pixtral-12b", {"n_layers": 1}, 4, 64, False),
-    # 6 + 6 of 12 + 12 layers (full depth until phase K came), 16
-    # source frames
+    # 6 + 6 of 12 + 12 layers, 16 source frames
     ("[audio]", "seamless-m4t-medium",
      {"n_layers": 6, "n_encoder_layers": 6}, 4, 64, False),
 )
@@ -2118,8 +1939,7 @@ def phase_families(dev, ckdir: str):
         depth = (f"cut to {cfg.n_layers} of {full.n_layers} layers"
                  if cfg.n_layers != full.n_layers else
                  f"{cfg.n_layers}{f' + {cfg.n_encoder_layers}' if cfg.n_encoder_layers else ''} layers (full depth)")
-        par = (f" parallel_recovery_ms={stats['par_ms']:.1f} (ratio "
-               f"{stats['par_ratio']:.4f}, peak {stats['par_peak']} B)"
+        par = (f" parallel_recovery_ms={stats['par_ms']:.1f}"
                if parallel else "")
         log(f"[family] {tag} {arch}: d={cfg.d_model}, {depth}"
             f"{' ' + str(dict(cut)) if cut else ''}, {cfg.param_dtype} "
@@ -2130,8 +1950,7 @@ def phase_families(dev, ckdir: str):
             f"{statistics.median(stats['step_ms'][1:]):.1f}; payload "
             f"{payload} B; recovery_ms={stats['rec_ms']:.1f} (device "
             f"replay, bitwise){par}; peak device memory training "
-            f"{stats['train_peak']} B, recovery {stats['rec_peak']} B above "
-            f"the trained copy; K1/K2/K4 launches {got['topk_select']}/"
+            f"{stats['train_peak']} B; K1/K2/K4 launches {got['topk_select']}/"
             f"{got['topk_scatter']}/{got['topk_apply']}"
             + (f"; MoE dispatch launches "
                f"{'/'.join(str(got[k]) for k in MOE_KERNELS)}"
@@ -2210,75 +2029,169 @@ def _tier_chain(cfg, dev, store_cfg, tag: str, *, steps: int, start: int,
     return launches
 
 
-def _lowdiff_maker(model, dev, full_interval: int):
-    """LowDiff as phases G and H run it (top-k rho 0.01 + EF, b = 2,
-    device replay) over a given store."""
+def _lowdiff_maker(model, dev, full_interval: int, compressor: str = "topk"):
+    """LowDiff as phases 3 and C-J run it (rho 0.01, error feedback but
+    with quant8, b = 2, device replay) over a given store."""
     from repro_torch.core.lowdiff import LowDiff
     return lambda st: LowDiff(model, st, rho=0.01, lr=1e-3,
                               full_interval=full_interval, batch_size=2,
-                              replay_device=True, device=dev,
-                              flush_timeout=3600.0)
+                              compressor=compressor, replay_device=True,
+                              device=dev, flush_timeout=3600.0)
 
 
 def _lowdiff_train(cfg, model, dev, strat, start: int, steps: int, tag: str,
-                   keep_at=None):
+                   keep_at=None, batch: int = 4, seq: int = 64,
+                   profile: str = None):
     """``steps`` LowDiff steps from a fresh state resumed at ``start``
-    (batch 4 x seq 64), with the kernel counts set to 0 first. Returns
-    the state, clones of its params/opt leaves, each step's ms and, with
-    ``keep_at``, clones of the leaves after that step."""
+    (``batch`` x ``seq``), with the kernel counts and the peak of device
+    memory reset first. With ``profile`` (a kernel's name), the last step
+    runs under ``_profiled``. Returns the state, each step's ms and, with
+    ``keep_at``, clones of the params/opt leaves after that step."""
     import torch
-    from repro_torch import tree_leaves
     from repro_torch.core.steps import init_state
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import build
     state = init_state(model, 0, device=dev)
     state["step"] = torch.tensor(start, dtype=torch.int32, device=dev)
-    stream = TokenStream(cfg, 64, 4, seed=0, device=dev)
+    stream = TokenStream(cfg, seq, batch, seed=0, device=dev)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     build.reset_launches()
     step_ms, losses, kept = [], [], None
     for i in range(steps):
-        batch = next(stream)
+        b = next(stream)
         t0 = time.perf_counter()
-        state, metrics = strat.train_step(state, batch)
+        if profile and i == steps - 1:
+            state, metrics = _profiled(
+                lambda: strat.train_step(state, b), profile, tag)
+        else:
+            state, metrics = strat.train_step(state, b)
         torch.cuda.current_stream(dev).synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
         if keep_at == start + i + 1:
-            kept = [t.clone() for t in tree_leaves(state["params"])
-                    + tree_leaves(state["opt"])]
+            kept = _clones(state)
     if not all(math.isfinite(l) for l in losses):
         fail(f"{tag} non-finite loss {losses}")
-    trained = [t.clone() for t in tree_leaves(state["params"])
-               + tree_leaves(state["opt"])]
-    return state, trained, step_ms, kept
+    return state, step_ms, kept
 
 
-def _recover_bitwise(strat, want_leaves, step: int, applied_want: int,
-                     tag: str, what: str) -> float:
+def _clones(state):
+    return [t.clone() for t in _state_leaves(state)]
+
+
+def _recover_check(strat, want_leaves, step: int, applied_want: int,
+                   tag: str, what: str, exact: bool = True) -> float:
     """``strat.recover()``, required to land on ``step`` after replaying
     ``applied_want`` differentials with params and opt bitwise equal to
-    ``want_leaves``; returns its ms."""
+    ``want_leaves`` (not ``exact``: within parallel replay's
+    reassociation tolerance, ``_replay_close``); logs its peak of device
+    memory above what was held before it and returns its ms."""
     import torch
-    from repro_torch import tree_leaves
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     got, applied = strat.recover()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    leaves = tree_leaves(got["params"]) + tree_leaves(got["opt"])
+    peak = torch.cuda.max_memory_allocated() - base
+    leaves = _state_leaves(got)
     if int(got["step"]) != step or applied != applied_want:
         fail(f"{tag} recovery {what}: step {int(got['step'])}, applied "
              f"{applied} (expected {step}, {applied_want})")
-    if len(leaves) != len(want_leaves) or not all(
-            bits_equal(a, b) for a, b in zip(want_leaves, leaves)):
-        fail(f"{tag} recovery {what}: params/opt differ from the state "
-             f"at step {step}")
+    if len(leaves) != len(want_leaves):
+        fail(f"{tag} recovery {what}: {len(leaves)} leaves, not "
+             f"{len(want_leaves)}")
+    if exact:
+        if not all(bits_equal(a, b) for a, b in zip(want_leaves, leaves)):
+            fail(f"{tag} recovery {what}: params/opt differ from the state "
+                 f"at step {step}")
+        same = "bitwise equal to"
+    else:
+        ratio = _replay_close(leaves, want_leaves, applied)
+        if not ratio <= 1.0:
+            fail(f"{tag} recovery {what}: differs from the state at step "
+                 f"{step} beyond the reassociation tolerance (ratio "
+                 f"{ratio})")
+        same = (f"within the reassociation tolerance (largest ratio "
+                f"{ratio:.4f}) of")
     log(f"{tag} recovered at step {step} {what}: {applied} differentials "
-        f"replayed; params+opt bitwise equal to the state at step {step} "
-        f"({len(leaves)} leaves)")
-    del got, leaves
+        f"replayed; params+opt {same} the state at step {step} "
+        f"({len(leaves)} leaves); recovery_ms={ms:.1f}, peak device memory "
+        f"{peak} B above what was held")
     return ms
+
+
+#: the most the tracer's card-to-host clock mapping may be off at the end
+#: of a traced run (the card's clock drifts a few ppm from the host's)
+TRACE_CLOCK_TOL_S = 0.5e-3
+
+
+def _trace_checks(step_ms, tag: str) -> None:
+    """The tracer over a traced training run of ``len(step_ms)`` steps:
+    the card-to-host clock mapping against a second anchor, taken now,
+    within ``TRACE_CLOCK_TOL_S``; one ``step`` span a step; every
+    ``step.*`` span inside its step on the card; and the phases' card
+    time (``step.*``, ``dev_t1 - dev_t0``) not over the steps' time."""
+    from repro_torch.obs.trace import TRACER
+    err = TRACER.clock_error()
+    spans = [(e[0], e[6] or {}) for e in TRACER.events()]
+    steps = [a for n, a in spans if n == "step"]
+    phases = [(n, a) for n, a in spans if n.startswith("step.")]
+    if err is None or abs(err) > TRACE_CLOCK_TOL_S:
+        fail(f"{tag} the tracer's clock mapping is off by {err} s at the "
+             f"end of the run (tolerance {TRACE_CLOCK_TOL_S} s)")
+    if len(steps) != len(step_ms):
+        fail(f"{tag} {len(steps)} step spans of {len(step_ms)} steps")
+    for n, a in phases:
+        if not any(st["dev_t0"] <= a["dev_t0"] <= a["dev_t1"]
+                   <= st["dev_t1"] for st in steps):
+            fail(f"{tag} {n} outside its step on the card")
+    card_ms = sum(a["dev_t1"] - a["dev_t0"] for _, a in phases) * 1e3
+    if card_ms > sum(step_ms):
+        fail(f"{tag} the phases' card time {card_ms:.3f} ms is over the "
+             f"steps' {sum(step_ms):.3f} ms")
+    log(f"{tag} trace: {len(steps)} step spans holding {len(phases)} step.* "
+        f"spans, each inside its step on the card; phases {card_ms:.3f} ms of "
+        f"{sum(step_ms):.3f}; clock error {err * 1e3:+.4f} ms at the end")
+
+
+def _profiled(fn, kname: str, tag: str):
+    """``fn()`` (a traced training step) under ``torch.profiler``: every
+    launch of the kernel ``kname`` must lie under a ``step.apply``
+    ``gpu_user_annotation``, and there must be one. Returns what ``fn``
+    returns."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+    finally:
+        os.remove(path)
+    applies = [e for e in events if e.get("cat") == "gpu_user_annotation"
+               and e["name"] == "step.apply"]
+    kerns = [e for e in events
+             if e.get("cat") == "kernel" and kname in e["name"]]
+    outside = [k for k in kerns if not any(
+        a["ts"] - 0.5 <= k["ts"] and k["ts"] + k["dur"]
+        <= a["ts"] + a["dur"] + 0.5 for a in applies)]
+    log(f"{tag} profiled step: {len(kerns)} {kname} launches, "
+        f"{len(kerns) - len(outside)} under a step.apply "
+        f"gpu_user_annotation")
+    if not kerns or outside:
+        fail(f"{tag} {len(outside)} of {len(kerns)} {kname} launches "
+             f"outside step.apply")
+    return out
 
 
 def _tier_run(cfg, dev, store_cfg, tag, rss, *, steps, start,
@@ -2299,8 +2212,9 @@ def _tier_run(cfg, dev, store_cfg, tag, rss, *, steps, start,
     store = store_cfg.build()
     mk = _lowdiff_maker(model, dev, full_interval)
     strat = mk(store)
-    state, trained, step_ms, _ = _lowdiff_train(cfg, model, dev, strat,
-                                                start, steps, tag)
+    state, step_ms, _ = _lowdiff_train(cfg, model, dev, strat, start,
+                                       steps, tag)
+    trained = _clones(state)
     t0 = time.perf_counter()
     strat.flush()
     flush_ms = (time.perf_counter() - t0) * 1e3
@@ -2322,7 +2236,7 @@ def _tier_run(cfg, dev, store_cfg, tag, rss, *, steps, start,
 
     def recover(st, what: str) -> float:
         want = fail_at - fail_at // full_interval * full_interval
-        return _recover_bitwise(st, trained, fail_at, want, tag, what)
+        return _recover_check(st, trained, fail_at, want, tag, what)
 
     del state
     rec_ms = recover(strat, f"through {'+'.join(t.name for t in tiers)}")
@@ -2464,8 +2378,9 @@ def _maint_h1(cfg, dev, ckdir: str, rss):
     svc, be = store.maintenance, store.backend
     mk = _lowdiff_maker(model, dev, 2)
     strat = mk(store)
-    _, trained, step_ms, _ = _lowdiff_train(cfg, model, dev, strat, 1, 4,
-                                            tag)
+    state, step_ms, _ = _lowdiff_train(cfg, model, dev, strat, 1, 4, tag)
+    trained = _clones(state)
+    del state
     t0 = time.perf_counter()
     strat.flush()
     flush_ms = (time.perf_counter() - t0) * 1e3
@@ -2500,7 +2415,7 @@ def _maint_h1(cfg, dev, ckdir: str, rss):
     if st["scrubbed"] != len(keep) or st["corrupt_found"] or \
             store.manifest.get("quarantined"):
         fail(f"{tag} scrub: {st}")
-    local_ms = _recover_bitwise(strat, trained, 5, 1, tag,
+    local_ms = _recover_check(strat, trained, 5, 1, tag,
                                 "through the local tier")
     pst = be.stats()
     sent = be.transport.bytes_sent
@@ -2519,7 +2434,7 @@ def _maint_h1(cfg, dev, ckdir: str, rss):
             any(e["tier"] != "peer" for e in store1.manifest["fulls"]):
         fail(f"{tag} adopted manifest {store1.manifest}")
     strat1 = mk(store1)
-    peer_ms = _recover_bitwise(strat1, trained, 5, 1, tag,
+    peer_ms = _recover_check(strat1, trained, 5, 1, tag,
                                "on host h1 from peer memory")
     reads = store1.backend.stats()["peer_reads"]
     if reads < 2:
@@ -2576,8 +2491,10 @@ def _maint_h2(cfg, dev, ckdir: str, rss):
     svc.crash_hook = kill
     mk = _lowdiff_maker(model, dev, 2)
     strat = mk(store)
-    _, trained, step_ms, kept = _lowdiff_train(cfg, model, dev, strat, 1, 4,
-                                               tag, keep_at=4)
+    state, step_ms, kept = _lowdiff_train(cfg, model, dev, strat, 1, 4,
+                                          tag, keep_at=4)
+    trained = _clones(state)
+    del state
     try:
         strat.flush()
         fail(f"{tag} the killed worker's GC did not surface from flush()")
@@ -2604,7 +2521,7 @@ def _maint_h2(cfg, dev, ckdir: str, rss):
     log(f"{tag} killed at gc:swept_slice with {left} on disk and the plan "
         f"at cursor {pending[0]['pos']}; a new service resumed it and "
         f"finished the sweep in {resume_ms:.1f} ms")
-    resumed_ms = _recover_bitwise(strat, trained, 5, 1, tag,
+    resumed_ms = _recover_check(strat, trained, 5, 1, tag,
                                   "after the resumed sweep")
     # corruption of the newest differential
     newest = max(store.manifest["batches"], key=lambda e: e["last"])["key"]
@@ -2619,7 +2536,7 @@ def _maint_h2(cfg, dev, ckdir: str, rss):
              f"{svc2.stats()}")
     log(f"{tag} flipped byte {off} of {newest}; the scrub quarantined "
         f"exactly it ({store.manifest['quarantined'][0]['reason'][:80]})")
-    cut_ms = _recover_bitwise(strat, kept, 4, 0, tag,
+    cut_ms = _recover_check(strat, kept, 4, 0, tag,
                               "with the chain cut at the quarantined gap")
     launches = dict(build.LAUNCHES)
     strat.close()
@@ -2635,10 +2552,9 @@ def _maint_h2(cfg, dev, ckdir: str, rss):
 
 def phase_maint(dev, ckdir: str):
     """Phase H: the maintenance service, the segmented journal and the
-    peer tier (H1 gpt2-l cut to 8 of 36 layers, H2 and H3 to 4; H1 ran
-    at full depth until phase I and at 12 layers until phase K needed
-    the script's time). Returns the
-    summed K1/K2/K4/K7 launches of their paths."""
+    peer tier (H1 gpt2-l cut to 8 of 36 layers, H2 and H3 to 4, for the
+    script's time limit). Returns the summed K1/K2/K4/K7 launches of
+    their paths."""
     import torch
     from repro_torch.configs import get_config
     gpt2 = get_config("gpt2-l")
@@ -2816,14 +2732,14 @@ def _serve_gpt2_write(dev, ckdir: str) -> dict:
     root = os.path.join(ckdir, "serve_gpt2")
     shutil.rmtree(root, ignore_errors=True)
     strat = _lowdiff_maker(model, dev, 2)(StoreConfig(root=root).build())
-    state, trained, step_ms, _ = _lowdiff_train(cfg, model, dev, strat, 1,
-                                                1, "[J1]")
+    state, step_ms, _ = _lowdiff_train(cfg, model, dev, strat, 1, 1,
+                                       "[J1]")
     launches = {k: build.LAUNCHES[k] for k in PATH_KERNELS["topk"]}
     for k, v in launches.items():
         if v <= 0:
             fail(f"[J1] the LowDiff step did not launch {k}")
     want = tree_leaves(state["params"])
-    del state, trained
+    del state
     torch.cuda.empty_cache()
     return {"cfg": cfg, "model": model, "root": root, "strat": strat,
             "want": want, "step_ms": step_ms[0], "launches": launches,
@@ -3130,7 +3046,7 @@ def _dist_serve(model, params, psh, mesh, dev, B=8, P=16, gen=8):
         f"{[round(x, 2) for x in ums]}")
 
 
-def phase_dist(dev, backend: str = "nccl", stats: dict = None):
+def phase_dist(dev, backend: str = "nccl"):
     """Phase K: ``repro_torch.distributed`` on full-width, full-depth
     gpt2-l (36 L, 1,072,469,760 params, f32; batch 4 x seq 64) over a
     process group of one rank (NCCL on the card; ``backend`` exists for
@@ -3142,8 +3058,7 @@ def phase_dist(dev, backend: str = "nccl", stats: dict = None):
     unsharded run's launches are the comparison's and put back). K2:
     ``_dist_k2`` on K1's last gradient. K3: ``_dist_serve`` from K1's
     trained params. Returns the path's K1 (K1's steps and K2) and K3
-    launches; ``stats`` (a dict) receives K1's sharded step ms and the
-    peak device memory."""
+    launches."""
     import tempfile
     import torch
     import torch.distributed as dist
@@ -3193,7 +3108,7 @@ def phase_dist(dev, backend: str = "nccl", stats: dict = None):
         stream = TokenStream(cfg, S, B, seed=0, device=dev)
         is_sg = lambda x: isinstance(x, SparseGrad)  # noqa: E731
         path = {"topk_select": 0, "adam_tile_update": 0}
-        sms, ums, losses = [], [], []
+        sms, losses = [], []
         for i in range(steps):
             b = next(stream)
             torch.cuda.synchronize()
@@ -3205,11 +3120,8 @@ def phase_dist(dev, backend: str = "nccl", stats: dict = None):
             for k in path:
                 path[k] += build.LAUNCHES[k] - before[k]
             counts = dict(build.LAUNCHES)
-            t0 = time.perf_counter()
             ustate, umet, grads = ustep(ustate, b)
             ucg = compress_tree(grads, rho)
-            torch.cuda.synchronize()
-            ums.append((time.perf_counter() - t0) * 1e3)
             build.LAUNCHES.update(counts)
             if not _same_state(sstate, ustate):
                 fail(f"K1: sharded state != unsharded after step {i + 1}")
@@ -3229,15 +3141,12 @@ def phase_dist(dev, backend: str = "nccl", stats: dict = None):
             del scg, ucg, got, want
         if path["topk_select"] <= 0 or path["adam_tile_update"] <= 0:
             fail(f"K1: the sharded step did not launch K1 and K3 ({path})")
-        if stats is not None:
-            stats.update(sms=sms, peak=torch.cuda.max_memory_allocated())
         log(f"[dist] K1 {steps} lowdiff_sharded steps of full gpt2-l "
             f"({model.n_params()} params, state "
             f"{sum(t.numel() * t.element_size() for t in _state_leaves(sstate))}"
             f" B) on the (1, 1) mesh: state, loss and payload bitwise equal "
             f"to lowdiff_plus + compress_tree each step; step ms sharded "
-            f"{[round(x, 2) for x in sms]}, unsharded (+ compress_tree) "
-            f"{[round(x, 2) for x in ums]}; losses "
+            f"{[round(x, 2) for x in sms]}; losses "
             f"{[round(x, 5) for x in losses]}; launches {path}; peak device "
             f"memory {torch.cuda.max_memory_allocated()} B")
         del ustate
@@ -3261,19 +3170,16 @@ def phase_dist(dev, backend: str = "nccl", stats: dict = None):
 # ---------------------------------------------------------------- phase L
 ROOF_TOL = 0.25     # L4: |dry-run estimate - measured peak| / measured peak
 ROOF_BATCH, ROOF_SEQ = 4, 64          # the script's gpt2-l shape
-ROOF_DIFFS = 19                       # phase 3's chain
 
 
 def _roof_cpu(out: str) -> None:
     """Phase L's CPU part (``--roof-cpu OUT``, run as a child process
-    beside the card's phases): fake runs, no card. L3: the roofline of
-    full gpt2-l's ``dense`` and ``lowdiff_sharded`` steps at 4 x 64 on
-    the (1, 1) mesh (``analysis.roofline.local_roofline``); L4: the dry
-    run's memory estimate of that ``lowdiff_sharded`` step
-    (``launch.dryrun.run_fake``); L5: ``lower_combo`` of qwen2-1.5b x
-    train_4k on the (16, 16) mesh. Writes JSON to ``out``."""
+    beside the card's phases): fake runs, no card. L4: the dry run's
+    memory estimate of full gpt2-l's ``lowdiff_sharded`` step at 4 x 64
+    on the (1, 1) mesh (``launch.dryrun.run_fake``); L5: ``lower_combo``
+    of qwen2-1.5b x train_4k on the (16, 16) mesh. Writes JSON to
+    ``out``."""
     import torch
-    from repro_torch.analysis.roofline import local_roofline
     from repro_torch.analysis.segments import local_blocks
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -3285,12 +3191,7 @@ def _roof_cpu(out: str) -> None:
     torch.set_num_threads(1)
     cfg = get_config("gpt2-l")
     shape = ShapeConfig("smoke", ROOF_SEQ, ROOF_BATCH, "train")
-    res, secs = {}, {}
-    t0 = time.perf_counter()
-    for mode in ("dense", "lowdiff_sharded"):
-        res[mode] = local_roofline(cfg, shape, train_mode=mode)
-    secs["L3"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    res = {}
     model = build_model(cfg)
     with fake_world(1), shd.use_mesh(make_local_mesh(1, 1),
                                      cfg.rules("train")):
@@ -3299,11 +3200,7 @@ def _roof_cpu(out: str) -> None:
         est = run_fake(step, (local_blocks(ast), ab))
     res["estimate"] = {k: est[k] for k in ("memory", "cost", "collectives",
                                            "compile_s")}
-    secs["L4"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     res["combo"] = lower_combo("qwen2-1.5b", "train_4k")
-    secs["L5"] = time.perf_counter() - t0
-    res["seconds"] = secs
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -3351,9 +3248,8 @@ def _roof_cpu_result(child) -> dict:
 def _roof_sharded_steps(cfg, dev, steps: int = 3, backend: str = "nccl"):
     """``steps`` ``lowdiff_sharded`` steps of full gpt2-l (4 x 64) on the
     live (1, 1) mesh of an NCCL group of one rank (phase K's K1 without
-    its comparisons). Returns (step ms, the steps' peak device memory
-    with the arguments counted and other residents not, the arguments'
-    bytes, the final state)."""
+    its comparisons). Returns (the steps' peak device memory with the
+    arguments counted and other residents not, the arguments' bytes)."""
     import tempfile
     import torch
     import torch.distributed as dist
@@ -3390,144 +3286,41 @@ def _roof_sharded_steps(cfg, dev, steps: int = 3, backend: str = "nccl"):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        ms = []
         for b in batches:
-            t0 = time.perf_counter()
             state, metrics, cg = step(state, b)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
             if not math.isfinite(float(metrics["loss"])):
                 fail(f"phase L: non-finite sharded loss {metrics['loss']}")
             del cg, metrics
         peak = torch.cuda.max_memory_allocated(dev) - base + args
+        del state
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
-    return ms, peak, args, state
+    return peak, args
 
 
-def _roof_replay(state, dev, n: int = ROOF_DIFFS):
-    """``n`` top-k differentials (rho 0.01) of seeded random gradients,
-    made on the card (K1; a comparison's launches, not a path's), then
-    ``recovery.replay_device`` of them on ``state`` with the payloads
-    already on the card: the apply loop apart from any upload. Returns
-    (host ms of the loop, payload bytes per differential, state bytes
-    read and written per differential: params and both moments)."""
-    import torch
-    from repro_torch import tree_leaves, tree_map
-    from repro_torch.compression.sparse import compress_tree, tree_nbytes
-    from repro_torch.core import recovery as rec
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    diffs = []
-    for i in range(n):
-        grads = tree_map(lambda t: torch.randn(
-            t.shape, generator=gen, device=dev, dtype=torch.float32) * 1e-3,
-            state["params"])
-        diffs.append((i + 1, compress_tree(grads, 0.01)))
-        del grads
-    payload = tree_nbytes(diffs[0][1])
-    opt = state["opt"]
-    state_b = sum(t.numel() * t.element_size() for t in
-                  tree_leaves(state["params"]) + tree_leaves(opt.mu)
-                  + tree_leaves(opt.nu))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params, opt2, applied = rec.replay_device(state["params"], opt, diffs,
-                                              device=dev)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    if applied != n:
-        fail(f"phase L: replayed {applied} of {n} differentials")
-    del params, opt2, diffs
-    return ms, payload, state_b
-
-
-def phase_roof(cfg, dev, smi: str, child, prior: dict = None,
-               backend: str = "nccl"):
+def phase_roof(cfg, dev, smi: str, child, backend: str = "nccl"):
     """Phase L: ``repro_torch.analysis`` against the card. ``child`` is
-    the ``_start_roof_cpu`` process (L3-L5's fake runs); ``prior`` holds
-    what phases 3, 4 and K measured (the whole script), or None
-    (``--only roof``: 3 dense steps are run here for L3, and the rest
-    comes from this phase's own runs).
-
-    L1 ``measured_copy_bandwidth`` on the card against HBM_BW. L2
-    ``replay_roofline`` of phase 3's chain (19 differentials of full
-    gpt2-l) against the apply loop of 19 differentials timed here and
-    against phase 3's whole device recovery. L3 the composed dense and
-    lowdiff_sharded steps' terms, their bound and its share of the
-    measured median steps (phase 4's dense, this phase's sharded steps,
-    phase 3's lowdiff and phase K's sharded). L4 the dry run's
-    ``peak_bytes_est`` of the lowdiff_sharded step against the peak of
-    this phase's three sharded steps, within ROOF_TOL (phase K's peak
-    printed beside it). L5 ``lower_combo`` of qwen2-1.5b x train_4k on
-    the (16, 16) mesh of a fake group of 256 ranks. ``backend`` exists
-    for rehearsals on the CPU."""
+    the ``_start_roof_cpu`` process (L4 and L5's fake runs). L4 the dry
+    run's ``peak_bytes_est`` of the lowdiff_sharded step against the
+    peak of three sharded steps here, within ROOF_TOL. L5 ``lower_combo``
+    of qwen2-1.5b x train_4k on the (16, 16) mesh of a fake group of 256
+    ranks. ``backend`` exists for rehearsals on the CPU."""
     import torch
-    from repro_torch.analysis.roofline import (measured_copy_bandwidth,
-                                               replay_roofline)
-    from repro_torch.launch.mesh import HBM_BW
     t_phase = time.perf_counter()
     card = f"({smi})"
-    bw = measured_copy_bandwidth(1 << 30, iters=10, device=dev)
-    log(f"[roof] L1 device-to-device copy of 1 GiB: {bw / 1e12:.4f} TB/s "
-        f"(2x the bytes copied), {100 * bw / HBM_BW:.2f}% of HBM_BW "
-        f"{HBM_BW / 1e12:.2f} TB/s {card}")
-    if prior is None:
-        _, dense_ms = phase_dense(cfg, dev, tag="[roof dense]")
-        prior = {"dense_ms": dense_ms}
-        log("[roof] --only roof: phase 4's dense steps run above; phase "
-            "3's and phase K's numbers are not available")
-    sms, peak, args, state = _roof_sharded_steps(cfg, dev, backend=backend)
-    loop_ms, payload, state_b = _roof_replay(state, dev)
-    del state
+    peak, args = _roof_sharded_steps(cfg, dev, backend=backend)
     torch.cuda.empty_cache()
-    rr = replay_roofline(state_b, payload, ROOF_DIFFS, device=dev)
-    bound_ms = rr["min_seconds"] * 1e3
-    p3 = prior.get("p3")
-    vs3 = (f"; phase 3's device recovery {p3['rec_ms']:.1f} ms "
-           f"(upload of the full included): "
-           f"{100 * bound_ms / p3['rec_ms']:.2f}%" if p3 else
-           "; phase 3 not run")
-    log(f"[roof] L2 replay_roofline: {ROOF_DIFFS} x (2 x {state_b} + "
-        f"{payload}) B = {rr['traffic_bytes']} B at "
-        f"{rr['bandwidth'] / 1e12:.2f} TB/s: {bound_ms:.2f} ms; the apply "
-        f"loop of {ROOF_DIFFS} differentials already on the card "
-        f"{loop_ms:.2f} ms: {100 * bound_ms / loop_ms:.2f}%{vs3} {card}")
     res = _roof_cpu_result(child)
-    med = lambda xs: statistics.median(xs[1:]) if len(xs) > 1 else xs[0]  # noqa: E731
-    for mode in ("dense", "lowdiff_sharded"):
-        r = res[mode]
-        bound = max(r["compute_s"], r["memory_s"], r["collective_s"])
-        meas = {"dense": [("phase 4 dense", prior["dense_ms"])],
-                "lowdiff_sharded": [("phase L sharded", sms)]}[mode]
-        if mode == "lowdiff_sharded" and p3:
-            meas.append(("phase 3 lowdiff", p3["step_ms"]))
-        if mode == "lowdiff_sharded" and prior.get("k"):
-            meas.append(("phase K sharded", prior["k"]["sms"]))
-        shares = ", ".join(f"{n} median {med(x):.2f} ms: "
-                           f"{100 * bound * 1e3 / med(x):.2f}%"
-                           for n, x in meas)
-        log(f"[roof] L3 {mode} gpt2-l {ROOF_BATCH}x{ROOF_SEQ} (1,1): flops "
-            f"{r['flops_per_chip']:.6g}, bytes {r['bytes_per_chip']:.6g} "
-            f"(+ collectives {r['coll_bytes_per_chip']:.6g}, local copies "
-            f"on one card), compute_s {r['compute_s']}, memory_s "
-            f"{r['memory_s']}, collective_s {r['collective_s']}, dominant "
-            f"{r['dominant']} (peak {r['peak_flops']:.4g} FLOP/s), "
-            f"useful_flops_ratio {r['useful_flops_ratio']}; bound "
-            f"{bound * 1e3:.3f} ms ({r['dominant']}); {shares} {card}")
     est = res["estimate"]["memory"]["peak_bytes_est"]
     err = abs(est - peak) / peak
-    k = prior.get("k")
     log(f"[roof] L4 dry-run peak_bytes_est of the lowdiff_sharded step "
         f"{est} B (arguments {res['estimate']['memory']['argument_bytes']}"
         f", outputs {res['estimate']['memory']['output_bytes']}, temps "
         f"{res['estimate']['memory']['temp_bytes']}; fake run "
         f"{res['estimate']['compile_s']} CPU s) against {peak} B measured "
-        f"over {len(sms)} sharded steps (arguments {args} B): "
-        f"{100 * err:.2f}% apart, tolerance {100 * ROOF_TOL:.0f}%"
-        + (f"; phase K's peak {k['peak']} B also held the unsharded "
-           f"state and step" if k else "") + f" {card}")
+        f"over 3 sharded steps (arguments {args} B): "
+        f"{100 * err:.2f}% apart, tolerance {100 * ROOF_TOL:.0f}% {card}")
     if not err <= ROOF_TOL:
         fail(f"L4: the dry run's estimate {est} B is {100 * err:.1f}% from "
              f"the measured peak {peak} B (tolerance {ROOF_TOL})")
@@ -3539,274 +3332,7 @@ def phase_roof(cfg, dev, smi: str, child, prior: dict = None,
         f"compile_s {c['compile_s']} (CPU s), peak_bytes_est "
         f"{c['memory']['peak_bytes_est']} B, flops {c['cost']['flops']:.6g}, "
         f"collectives {c['collectives']} {card}")
-    log(f"[roof] child CPU s {res['seconds']}")
     log(f"[time] phase L: {time.perf_counter() - t_phase:.1f} s")
-    return {}
-
-
-# ---------------------------------------------------------------- profile
-def phase_profile(cfg, dev, steps: int = 2):
-    """``--profile``: torch.profiler over warm lowdiff and dense steps
-    (no checkpointing): device time by kernel and the device's busy
-    share of the (profiled) step wall; the same steps are first timed
-    without the profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.steps import init_state, make_train_step
-    from repro_torch.data.synthetic import TokenStream
-    from repro_torch.models.registry import build_model
-    model = build_model(cfg)
-    for mode in ("lowdiff", "dense"):
-        state = init_state(model, 0, mode=mode, device=dev)
-        step = make_train_step(model, mode=mode)
-        stream = TokenStream(cfg, 64, 4, seed=0, device=dev)
-        for _ in range(2):                       # warm-up
-            state, _, _ = step(state, next(stream))
-        torch.cuda.synchronize()
-        batches = [next(stream) for _ in range(steps)]
-        t0 = time.perf_counter()
-        for b in batches:
-            state, _, _ = step(state, b)
-        torch.cuda.synchronize()
-        plain_wall = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for b in batches:
-                state, _, _ = step(state, b)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
-        kern = [e for e in prof.events()
-                if str(e.device_type).endswith("CUDA")]
-        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / steps
-        by_name = {}
-        for e in kern:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / steps
-        log(f"[profile] {mode}: step wall {plain_wall:.2f} ms unprofiled, "
-            f"{wall:.2f} ms profiled; device busy "
-            f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
-            f"{len(kern) // steps} device ops per step")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-            log(f"[profile] {mode}:   {ms:9.3f} ms  {name[:110]}")
-        del state
-        torch.cuda.empty_cache()
-
-
-# ---------------------------------------------------------------- phase T
-#: the benchmark's gpt2-l cells that phase T runs as the benchmark builds
-#: them (``chipbench``), and its seed
-TRACE_CELLS = ("gpt2l.lowdiff.topk", "gpt2l.dense")
-TRACE_SEED = 2718281828
-#: timed blocks of 20 steps, tracing off, on, on, off, ...
-TRACE_BLOCKS = 8
-TRACE_BLOCK_STEPS = 20
-#: the most the tracer's card-to-host clock mapping may be off
-TRACE_CLOCK_TOL_S = 0.5e-3
-#: the benchmark's readers of the step's spans
-TRACE_READERS = ("dispatch_ms.train", "fwd_bwd_ms.train",
-                 "compress_ms.train", "apply_ms.train", "full_d2h_s.train")
-
-
-def _span_cost(n: int = 20000) -> dict:
-    """Host us per empty ``trace_span`` over ``n`` of them on an idle
-    card: tracing off, on (host clock only), on with ``device=True``."""
-    import torch
-    from repro_torch.obs.trace import TRACER, trace_span
-    out = {}
-    for key, on, device in (("off", False, True), ("host", True, False),
-                            ("device", True, True)):
-        TRACER.clear()
-        if on:
-            TRACER.enable()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            with trace_span("smoke.cost", device=device):
-                pass
-        out[key] = (time.perf_counter() - t0) / n * 1e6
-        TRACER.events()
-        TRACER.disable()
-    TRACER.clear()
-    return out
-
-
-def _trace_cell(name: str, dev, problems: list) -> None:
-    """One benchmark cell: blocks of steps with tracing off and on in
-    turn (the step time of each), the readers over each traced block,
-    each device span's phases inside its step on the card, the clock
-    mapping against a fresh anchor after each traced block, then one
-    profiled step whose apply kernels must each lie under a ``step.apply``
-    ``gpu_user_annotation``."""
-    import tempfile
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    if HERE not in sys.path:
-        sys.path.insert(0, HERE)
-    from chipbench import harness
-    from chipbench.drivers.train import Trainer
-    from repro_torch.obs.trace import TRACER
-    cell = harness.load_cell(name)
-    t = cell.traffic
-    TRACER.clear()
-    t_set = time.perf_counter()
-    tr = Trainer(cell, dev, TRACE_SEED)
-    if tr.lowdiff:
-        while tr.strat.full_saves < t["warm_fulls"]:
-            tr.one()
-    else:
-        for _ in range(t["warm_steps"]):
-            tr.one()
-    log(f"[trace] {name}: set-up and warm-up {time.perf_counter() - t_set:.1f}"
-        f" s")
-    readers = {m: harness._load(os.path.join(HERE, "chipbench",
-                                             "layer_metrics", f"{m}.py"),
-                                "smoke_" + m.replace(".", "_"))
-               for m in TRACE_READERS}
-    ms = {"off": [], "on": []}
-    t_anchor = None
-    n = TRACE_BLOCK_STEPS
-    for i in range(TRACE_BLOCKS):
-        on = i % 4 in (1, 2)
-        if on:
-            TRACER.enable()
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            tr.one()
-        torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        TRACER.disable()
-        step_ms = (t1 - t0) / n * 1e3
-        ms["on" if on else "off"].append(step_ms)
-        if not on:
-            log(f"[trace] {name}: block {i} off: {step_ms:.3f} ms/step")
-            continue
-        spans = [(e[0], e[4], e[5], e[6] or {}) for e in TRACER.events()
-                 if t0 <= e[5] <= t1]
-        t_anchor = t_anchor or t0
-        err = TRACER.clock_error()
-        run = harness.Run(kind="train", e2e={"step_ms": step_ms},
-                          attempted=n, failed=0, memory_peak_bytes=0,
-                          numbers={}, traffic=t, units=n, spans=spans)
-        got = {m: r.read(run) for m, r in readers.items()}
-        parts = sum(got[m] or 0.0 for m in ("fwd_bwd_ms.train",
-                                            "compress_ms.train",
-                                            "apply_ms.train"))
-        log(f"[trace] {name}: block {i} on: {step_ms:.3f} ms/step; "
-            + ", ".join(f"{m} {v!r}" for m, v in got.items())
-            + f"; phases {parts:.3f} ms, remainder {step_ms - parts:.3f} ms"
-            f"; clock error {err * 1e3:+.4f} ms at "
-            f"{time.perf_counter() - t_anchor:.1f} s after the anchor")
-        if abs(err) > TRACE_CLOCK_TOL_S:
-            problems.append(f"{name}: clock error {err * 1e3:.4f} ms")
-        if parts > step_ms:
-            problems.append(f"{name}: phases {parts:.3f} ms over the "
-                            f"step's {step_ms:.3f} ms")
-        lag = {}
-        for s in spans:
-            if "dev_t0" in s[3]:
-                lag.setdefault(s[0], []).append(
-                    ((s[3]["dev_t0"] - s[1]) * 1e3,
-                     (s[3]["dev_t1"] - s[2]) * 1e3))
-        log(f"[trace] {name}: block {i} card behind host (median ms at "
-            "entry / exit): " + ", ".join(
-                f"{k} {statistics.median(a for a, _ in v):.3f} / "
-                f"{statistics.median(b for _, b in v):.3f}"
-                for k, v in sorted(lag.items())))
-        steps = sorted((s for s in spans if s[0] == "step"),
-                       key=lambda s: s[1])
-        host_gap = [(b[1] - a[2]) * 1e3 for a, b in zip(steps, steps[1:])]
-        card_gap = [(b[3]["dev_t0"] - a[3]["dev_t1"]) * 1e3
-                    for a, b in zip(steps, steps[1:])]
-        hand = [(s[2] - s[1]) * 1e3 for s in spans
-                if s[0] == "lowdiff.handoff"]
-        d2h = [(round(s[2] - s[1], 4), s[3].get("wait_ms")) for s in spans
-               if s[0] == "snapshot.d2h" and s[3].get("kind") == "full"]
-        if host_gap:
-            log(f"[trace] {name}: block {i} between steps (ms, median / "
-                f"max): host {statistics.median(host_gap):.3f} / "
-                f"{max(host_gap):.3f}, card {statistics.median(card_gap):.3f}"
-                f" / {max(card_gap):.3f} (sum {sum(card_gap):.3f})"
-                + (f"; lowdiff.handoff host {statistics.median(hand):.3f} / "
-                   f"{max(hand):.3f}" if hand else "")
-                + (f"; full snapshot.d2h (s, wait_ms) {d2h}" if d2h else ""))
-        if len(steps) != n:
-            problems.append(f"{name}: {len(steps)} step spans of {n}")
-        for s in spans:
-            a = s[3]
-            if s[0].startswith("step.") and not any(
-                    st[3]["dev_t0"] <= a["dev_t0"] <= a["dev_t1"]
-                    <= st[3]["dev_t1"] for st in steps):
-                problems.append(f"{name}: {s[0]} outside its step on the "
-                                f"card")
-                break
-    med = {k: statistics.median(v) for k, v in ms.items()}
-    log(f"[trace] {name}: step ms off {ms['off']}, on {ms['on']}; medians "
-        f"off {med['off']:.3f}, on {med['on']:.3f} "
-        f"({(med['on'] / med['off'] - 1) * 100:+.3f}%)")
-
-    TRACER.enable()
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tr.one()
-        torch.cuda.synchronize(dev)
-    TRACER.disable()
-    TRACER.clear()
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path, encoding="utf-8") as f:
-            events = [e for e in json.load(f)["traceEvents"]
-                      if e.get("ph") == "X"]
-    finally:
-        os.remove(path)
-    notes = {}
-    for e in events:
-        if e.get("cat") in ("user_annotation", "gpu_user_annotation"):
-            key = (e["cat"], e["name"])
-            notes.setdefault(key, []).append(e)
-    log(f"[trace] {name}: profiled step's annotations "
-        + ", ".join(f"{c} {n_} x{len(v)}"
-                    for (c, n_), v in sorted(notes.items())))
-    kname = "topk_apply_kernel" if tr.lowdiff else "adam_kernel"
-    applies = notes.get(("gpu_user_annotation", "step.apply"), [])
-    kerns = [e for e in events
-             if e.get("cat") == "kernel" and kname in e["name"]]
-    outside = [k for k in kerns if not any(
-        a["ts"] - 0.5 <= k["ts"] and k["ts"] + k["dur"]
-        <= a["ts"] + a["dur"] + 0.5 for a in applies)]
-    log(f"[trace] {name}: {len(kerns)} {kname} launches, "
-        f"{len(kerns) - len(outside)} under a step.apply "
-        f"gpu_user_annotation")
-    if not kerns or outside:
-        problems.append(f"{name}: {len(outside)} of {len(kerns)} {kname} "
-                        f"outside step.apply")
-    tr.close()
-    _release_pinned()
-
-
-def phase_trace(dev) -> dict:
-    """T. the tracer on the card (``--only trace``): T1 the host cost of
-    an empty span, tracing off, on, and on with the card's clock; T2 the
-    benchmark's gpt2-l cells (``TRACE_CELLS``), each built as the
-    benchmark builds it, through ``_trace_cell``: the step time with
-    tracing off against on, the five readers of the step's spans, the
-    clock mapping within ``TRACE_CLOCK_TOL_S`` of a second anchor, and a
-    profiled step with every apply kernel under ``step.apply``."""
-    t_phase = time.perf_counter()
-    cost = _span_cost()
-    log("[trace] us per empty span: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in cost.items()))
-    problems: list = []
-    for name in TRACE_CELLS:
-        _trace_cell(name, dev, problems)
-    log(f"[time] phase T: {time.perf_counter() - t_phase:.1f} s")
-    if problems:
-        fail("phase T: " + "; ".join(problems))
-    return {}
 
 
 # ---------------------------------------------------------------- phase X
@@ -3862,7 +3388,7 @@ def phase_head(dev, reps: int = REPS) -> dict:
     bounds; then one micro-batch of the head forward + backward, the
     tensor-core path against the up-cast path (loss; dh and dW within
     ``ref.rounded_apart``'s bounds, dW's from the up-cast path's chunk
-    terms; time, peak memory, launches: one of each kernel per chunk),
+    terms; one launch of each kernel per chunk),
     the control (the logit gradient rounded once to bf16), which must
     fall outside those bounds, and a profile of the tensor-core path in
     which no GEMM runs on CUDA cores."""
@@ -3929,29 +3455,15 @@ def phase_head(dev, reps: int = REPS) -> dict:
                 f"{100 * r['bound_ms'] / r['ms']:.1f}%), plain "
                 f"{r['plain_ms']:.4f} ms")
         del x, planes, pref, p, q, g
-        # the whole head, one micro-batch
+        # the whole head, one micro-batch: one launch of each kernel a chunk
         n_chunks = S // chunk
-        paths = {"tensor_core": ops._TensorCoreXent.apply,
-                 "upcast": lambda *a: ops._xent_upcast(*a, True)}
-        res = {}
-        for pname, fn in paths.items():
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            n0 = dict(build.LAUNCHES)
-            res[pname] = _head_fwd_bwd(fn, h, w, t, m, chunk)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() - base
-            launches = {k: build.LAUNCHES[k] - n0[k]
-                        for k in ("xent_rows", "xent_grad_split")}
-            ms = timed(lambda: _head_fwd_bwd(fn, h, w, t, m, chunk), 5)
-            out[f"head.{shape}.{pname}"] = {"ms": ms, "peak_bytes": peak}
-            log(f"[head] {shape} fwd+bwd {pname}: {ms:.3f} ms, peak "
-                f"{peak / 1e9:.3f} GB above inputs, launches {launches}")
-            if pname == "tensor_core" and launches != {
-                    "xent_rows": n_chunks, "xent_grad_split": n_chunks}:
-                fail(f"[head] {shape}: {launches}, want {n_chunks} each")
-        tc, up = res["tensor_core"], res["upcast"]
+        n0 = dict(build.LAUNCHES)
+        tc = _head_fwd_bwd(ops._TensorCoreXent.apply, h, w, t, m, chunk)
+        launches = {k: build.LAUNCHES[k] - n0[k] for k in HEAD_KERNELS}
+        if launches != dict.fromkeys(HEAD_KERNELS, n_chunks):
+            fail(f"[head] {shape}: {launches}, want {n_chunks} each")
+        up = _head_fwd_bwd(lambda *a: ops._xent_upcast(*a, True), h, w, t, m,
+                           chunk)
         wl = w.detach().requires_grad_(True)
         terms = ops._xent_upcast_terms(h, wl, t, m, chunk, wl)
         del wl
@@ -3962,8 +3474,6 @@ def phase_head(dev, reps: int = REPS) -> dict:
         finally:
             kx.xent_grad_split = saved
         loss_rel = abs(float(tc[0]) / float(up[0]) - 1.0)
-        speed = (out[f"head.{shape}.upcast"]["ms"]
-                 / out[f"head.{shape}.tensor_core"]["ms"])
         gaps = {}
         for name, got in (("split", tc), ("once", once)):
             gaps[name] = (ref.rounded_apart(got[1], up[1]),
@@ -3972,8 +3482,7 @@ def phase_head(dev, reps: int = REPS) -> dict:
             log(f"[head] {shape} {name} vs upcast: dh {dh_r:.3f} of its "
                 f"bound max ({100 * dh_s:.3f}% differ), dW {dw_r:.3f} of "
                 f"its bound max ({100 * dw_s:.3f}% differ)"
-                + (f", loss rel {loss_rel:.3e}, speed-up {speed:.2f}x"
-                   if name == "split" else
+                + (f", loss rel {loss_rel:.3e}" if name == "split" else
                    " (the control: g rounded once to bf16)"))
         if loss_rel > 2.0 ** -18 or any(r > 1.0 or sh >= 0.05
                                         for r, sh in gaps["split"]):
@@ -3981,8 +3490,7 @@ def phase_head(dev, reps: int = REPS) -> dict:
         if not all(r > 1.0 or sh >= 0.05 for r, sh in gaps["once"]):
             fail(f"[head] {shape}: the comparison passes a gradient "
                  f"rounded once to bf16")
-        del terms, once
-        del res, tc, up
+        del terms, once, tc, up
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _head_fwd_bwd(ops._TensorCoreXent.apply, h, w, t, m, chunk)
@@ -4069,9 +3577,8 @@ def phase_moe(dev, reps: int = REPS) -> dict:
     the formulation before it: y and the expert buffers' gradient
     bitwise, the gates' gradient within one bf16 spacing, the tokens'
     within the K - 1 bf16 roundings of a sum in another order on each side
-    (2 (K - 1) 2^-9 of its norm), time and peak
-    memory above the inputs, and one launch of the plan and two of each
-    gather."""
+    (2 (K - 1) 2^-9 of its norm), and one launch of the plan and two of
+    each gather."""
     import torch
     from repro_torch.kernels import build, ref
     from repro_torch.models import moe
@@ -4146,35 +3653,17 @@ def phase_moe(dev, reps: int = REPS) -> dict:
                 f"{100 * r['bound_ms'] / r['ms']:.1f}%), plain "
                 f"{r['plain_ms']:.4f} ms, largest |kernel - plain| "
                 f"{err:.3e}")
-        cs_ms = timed(lambda: ref.moe_cumsum_plan_ref(eid, 0, n, C), reps)
         log(f"[moe] {shape} held {n} of 64, C {C}: {kept} of {TK} "
-            f"assignments kept, of {toks} tokens; the cumsum plan "
-            f"(parent) {cs_ms:.4f} ms")
+            f"assignments kept, of {toks} tokens")
         del dot_bound
         # the dispatch and the combine, forward and backward
-        res = {}
-        for pname, fn in (("slot_map", _moe_slot_map),
-                          ("parent", _moe_parent)):
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            n0 = dict(build.LAUNCHES)
-            res[pname] = _moe_fwd_bwd(fn, xf, gate, eid, dy, n)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() - base
-            launches = {k: build.LAUNCHES[k] - n0[k] for k in MOE_KERNELS}
-            ms = timed(lambda: _moe_fwd_bwd(fn, xf, gate, eid, dy, n), 5)
-            out[f"fwd_bwd.{shape}.{pname}"] = {"ms": ms, "peak_bytes": peak}
-            log(f"[moe] {shape} dispatch + combine fwd+bwd {pname}: "
-                f"{ms:.3f} ms, peak {peak / 1e9:.3f} GB above inputs, "
-                f"launches {launches}")
-            if pname == "slot_map" and launches != {
-                    "moe_plan": 1, "moe_slot_gather": 2,
-                    "moe_assign_gather": 2}:
-                fail(f"[moe] {shape}: launches {launches}")
-        (y, gye, gx, gg), (py, pgye, pgx, pgg) = res["slot_map"], \
-            res["parent"]
+        n0 = dict(build.LAUNCHES)
+        y, gye, gx, gg = _moe_fwd_bwd(_moe_slot_map, xf, gate, eid, dy, n)
+        launches = {k: build.LAUNCHES[k] - n0[k] for k in MOE_KERNELS}
+        if launches != {"moe_plan": 1, "moe_slot_gather": 2,
+                        "moe_assign_gather": 2}:
+            fail(f"[moe] {shape}: launches {launches}")
+        py, pgye, pgx, pgg = _moe_fwd_bwd(_moe_parent, xf, gate, eid, dy, n)
         spacing = torch.ldexp(torch.ones_like(pgg), torch.frexp(
             pgg.abs().clamp_min(2.0 ** -126))[1] - 8)
         gx_gap = float((gx.float() - pgx.float()).norm()
@@ -4183,14 +3672,13 @@ def phase_moe(dev, reps: int = REPS) -> dict:
             f"{bits_equal(y, py)}, expert-buffer gradient bitwise "
             f"{bits_equal(gye, pgye)}, gate gradient max "
             f"{float(((gg - pgg).abs() / spacing).max()):.3f} bf16 spacings"
-            f", token gradient norm gap {gx_gap:.3e}; speed-up "
-            f"{out[f'fwd_bwd.{shape}.parent']['ms'] / out[f'fwd_bwd.{shape}.slot_map']['ms']:.2f}x")
+            f", token gradient norm gap {gx_gap:.3e}; launches {launches}")
         if not (bits_equal(y, py) and bits_equal(gye, pgye)
                 and bool(((gg - pgg).abs() <= spacing).all())
                 and gx_gap < 2 * (K - 1) * 2.0 ** -9):
             fail(f"[moe] {shape}: the slot map is off the parent's "
                  f"formulation")
-        del res, y, gye, gx, gg, py, pgye, pgx, pgg, xf, ye, dy
+        del y, gye, gx, gg, py, pgye, pgx, pgg, xf, ye, dy
         torch.cuda.empty_cache()
     log(f"[time] phase M: {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -4230,18 +3718,13 @@ KERNELS = [
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("all", "kernels", "families",
-                                       "serve", "hymba-f32", "dist", "roof",
-                                       "trace", "head", "moe"),
+                                       "serve", "dist", "roof", "head",
+                                       "moe"),
                     default="all", help="kernels: stop after phases A, X "
-                    "and M; families / serve / dist / roof / trace / head / "
-                    "moe: the build and phase I / J / K / L / T / X / M "
-                    "alone; "
-                    "hymba-f32: the build "
-                    "and J2's Hymba with f32 compute")
+                    "and M; families / serve / dist / roof / head / moe: the "
+                    "build and phase I / J / K / L / X / M alone")
     ap.add_argument("--roof-cpu", default=None, metavar="OUT",
                     help=argparse.SUPPRESS)   # phase L's child process
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile warm lowdiff and dense steps")
     ap.add_argument("--ckpt-dir", default=os.path.join(HERE, "build",
                                                        "chip_smoke_ckpt"))
     args = ap.parse_args()
@@ -4275,24 +3758,15 @@ def main() -> int:
     if args.only in ("all", "roof"):
         child = _start_roof_cpu()
         atexit.register(_stop_child, child[0])
-    if args.only in ("families", "serve", "hymba-f32", "dist", "roof",
-                     "trace", "head", "moe"):
+    if args.only in ("families", "serve", "dist", "roof", "head", "moe"):
         if args.only == "dist":
             got = phase_dist(dev)
-        elif args.only == "trace":
-            got = phase_trace(dev)
         elif args.only == "head":
             got = {k: v["ms"] for k, v in phase_head(dev).items()}
         elif args.only == "moe":
             got = {k: v["ms"] for k, v in phase_moe(dev).items()}
         elif args.only == "roof":
             got = phase_roof(cfg, dev, smi, child)
-        elif args.only == "hymba-f32":
-            tag, arch, cut, B, P, gen = next(
-                m for m in SERVE_MODELS if m[1] == "hymba-1.5b")
-            got = _serve_family("[hybrid f32]", arch,
-                                dict(cut, compute_dtype="float32"), B, P,
-                                gen, dev)
         else:
             phase = phase_families if args.only == "families" \
                 else phase_serve
@@ -4319,8 +3793,7 @@ def main() -> int:
     launches.update({k: res[k]["parity_launches"]
                      for k in ("span_pack", "quant_span_decode")})
     if args.only == "all":
-        p3 = {}
-        got, diff_bytes = phase_main(cfg, dev, args.ckpt_dir, stats=p3)
+        got, diff_bytes = phase_main(cfg, dev, args.ckpt_dir, traced=True)
         launches.update({k: v for k, v in got.items()
                          if k in PATH_KERNELS["topk"] + HEAD_KERNELS})
         got, dense_ms = phase_dense(cfg, dev)
@@ -4373,17 +3846,13 @@ def main() -> int:
         for k in PATH_KERNELS["topk"]:
             launches[k] += got[k]
         log(f"[time] + phase J: {time.perf_counter() - t_all:.1f} s")
-        kstats = {}
-        got = phase_dist(dev, stats=kstats)
+        got = phase_dist(dev)
         for k, v in got.items():
             launches[k] += v
         log(f"[time] + phase K: {time.perf_counter() - t_all:.1f} s")
         # phase L's own runs are comparisons, not a path: no launch adds
-        phase_roof(cfg, dev, smi, child, prior={
-            "p3": p3, "dense_ms": dense_ms, "k": kstats})
+        phase_roof(cfg, dev, smi, child)
         log(f"[time] + phase L: {time.perf_counter() - t_all:.1f} s")
-    if args.profile:
-        phase_profile(cfg, dev)
     kernels = []
     for name, source, replaces in KERNELS:
         r = res[name]

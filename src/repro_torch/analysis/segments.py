@@ -53,7 +53,7 @@ from repro_torch.distributed import step_builder as sb
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import encdec, lm, ops
-from repro_torch.models.param import ParamSpec, is_spec
+from repro_torch.models.param import ParamSpec, is_spec, is_stacked
 from repro_torch.optim.adam import AdamState
 
 
@@ -272,8 +272,8 @@ def train_segments(model, shape: ShapeConfig, *,
     def reduce_seg(grads):
         def restack(g):
             return torch.stack([g[i] for i in range(g.shape[0])])
-        grads = {k: tree_map(restack, v) if k in steps_lib.STACKED else v
-                 for k, v in grads.items()}
+        grads = tree_map(lambda g, s: restack(g) if is_stacked(s) else g,
+                         grads, model.specs)
         for g in tree_leaves(grads):
             col.all_reduce_(g, group)
         return sb.shard_tree(grads, psh)

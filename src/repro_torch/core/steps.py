@@ -43,6 +43,7 @@ from repro_torch.compression.error_feedback import (ef_compress_tree_with,
 from repro_torch.compression.sparse import is_compressed
 from repro_torch.configs.base import DTYPES
 from repro_torch.kernels import ops
+from repro_torch.models.param import is_stacked
 from repro_torch.obs.trace import trace_span
 from repro_torch.optim.adam import AdamState, adam_init
 
@@ -66,24 +67,18 @@ def init_state(model, seed: int = 0, *, mode: str = "lowdiff",
     return state
 
 
-#: top-level subtrees whose leaves are stacked per layer (a leading L
-#: dim): the decoder stack, its leading dense layers, and the
-#: encoder-decoder's two stacks
-STACKED = ("layers", "dense_layers", "enc_layers", "dec_layers")
-
-
-def _differentiable(params):
+def _differentiable(params, specs):
     """(live tree, autograd leaves, regroup). Each stacked per-layer leaf
-    (under a ``STACKED`` key) is handed to the model as a list of its (L)
-    layer slices, each its own autograd leaf, and ``regroup`` stacks
-    their gradients back: the gradient of a whole stacked leaf through
-    per-layer indexing would materialize and add one full-size,
-    zero-padded copy per layer."""
+    (``is_stacked`` of its spec in ``specs``, the model's spec tree) is
+    handed to the model as a list of its (L) layer slices, each its own
+    autograd leaf, and ``regroup`` stacks their gradients back: the
+    gradient of a whole stacked leaf through per-layer indexing would
+    materialize and add one full-size, zero-padded copy per layer."""
     leaves, groups = [], []
 
-    def live(p, stacked):
+    def live(p, spec):
         base = p.detach()
-        if stacked:
+        if is_stacked(spec):
             views = [base[i].requires_grad_(True)
                      for i in range(base.shape[0])]
             groups.append(len(views))
@@ -93,8 +88,7 @@ def _differentiable(params):
         leaves.append(base.requires_grad_(True))
         return leaves[-1]
 
-    tree = {k: tree_map(lambda p, s=(k in STACKED): live(p, s), v)
-            for k, v in sorted(params.items())}
+    tree = tree_map(live, params, specs)
 
     def regroup(grads):
         out, i = [], 0
@@ -128,7 +122,7 @@ def _grads(model, params, batch, accum: int):
     are the reference's ``{"xent", "aux": 0, "tokens": 0}``.
     Each micro-batch opens a ``step.forward`` and a ``step.backward``
     span, the latter with its accumulation adds."""
-    live, leaves, regroup = _differentiable(params)
+    live, leaves, regroup = _differentiable(params, model.specs)
 
     def one(b, acc=None):
         with trace_span("step.forward", "step", device=True):

@@ -268,6 +268,7 @@ class _ShardLoss:
 
     def __init__(self, model, group):
         self.model, self.cfg, self.group = model, model.cfg, group
+        self.specs = model.specs
 
     def loss_fn(self, params, batch):
         loss, metrics = self.model.loss_fn(params, batch)

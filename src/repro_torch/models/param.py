@@ -39,13 +39,20 @@ def is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
 
 
+def is_stacked(spec: ParamSpec) -> bool:
+    """A leaf stacked per layer: its first logical axis is ``"layers"``,
+    a leading dim of one slice per layer, wherever the leaf sits in the
+    tree."""
+    return bool(spec.logical) and spec.logical[0] == "layers"
+
+
 def init_std(spec: ParamSpec) -> float:
     """Standard deviation of a normal/embed leaf (fan-in rule: the
     stacked layer dim does not count towards fan-in)."""
     if spec.init == "embed":
         return spec.scale
     fan_in = spec.shape[0] if len(spec.shape) == 1 else int(np.prod(spec.shape[:-1]))
-    if spec.logical and spec.logical[0] == "layers" and len(spec.shape) > 2:
+    if is_stacked(spec) and len(spec.shape) > 2:
         fan_in = int(np.prod(spec.shape[1:-1]))
     return spec.scale / math.sqrt(max(fan_in, 1))
 

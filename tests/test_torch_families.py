@@ -30,7 +30,8 @@ from repro_torch.core.steps import _differentiable, _grads, _micro
 from repro_torch.data.synthetic import _f64_to, make_batch
 from repro_torch.models import moe
 from repro_torch.models.lm import layer_windows
-from repro_torch.models.param import from_jax_params
+from repro_torch.models.param import ParamSpec, from_jax_params
+from repro_torch.models.param import materialize as torch_materialize
 from repro_torch.models.registry import build_model
 
 FAMILIES = ("deepseek-moe-16b", "qwen3-moe-235b-a22b", "hymba-1.5b",
@@ -396,7 +397,7 @@ def test_stacked_subtrees_take_per_layer_leaves():
     autograd leaves; the top-level leaves stay whole."""
     model = build_model(get_config("seamless-m4t-medium").reduced())
     params = model.init(0, device="cpu")
-    live, leaves, _ = _differentiable(params)
+    live, leaves, _ = _differentiable(params, model.specs)
     for k in ("enc_layers", "dec_layers"):
         wq = live[k]["attn" if k == "enc_layers" else "self_attn"]["wq"]
         assert isinstance(wq, list) and len(wq) == 2
@@ -404,6 +405,59 @@ def test_stacked_subtrees_take_per_layer_leaves():
     n_stacked = sum(1 for k in ("enc_layers", "dec_layers")
                     for _ in tree_leaves(params[k]))
     assert len(leaves) == len(tree_leaves(params)) + n_stacked
+
+
+#: the rule ``is_stacked`` replaced: the top-level keys of the stacks
+STACK_KEYS = {"layers", "dense_layers", "enc_layers", "dec_layers"}
+
+
+def _paths(tree, leaf, path=()):
+    """Paths of the nodes of a nested dict for which ``leaf`` holds."""
+    if leaf(tree):
+        return {path}
+    if isinstance(tree, dict):
+        return {p for k, v in tree.items() for p in _paths(v, leaf, path + (k,))}
+    return set()
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch", sorted(_REGISTRY))
+def test_stacked_split_is_the_stack_keys(arch, reduced):
+    """The leaves ``_differentiable`` splits per layer, read from the
+    specs' first logical axis, are exactly the leaves under the stacks'
+    top-level keys, in every registry config (specs only, on ``meta``)."""
+    cfg = get_config(arch)
+    model = build_model(cfg.reduced() if reduced else cfg)
+    params = model.abstract_params()
+    live, leaves, regroup = _differentiable(params, model.specs)
+    split = _paths(live, lambda x: isinstance(x, list))
+    whole = _paths(params, lambda x: isinstance(x, torch.Tensor))
+    assert split == {p for p in whole if p[0] in STACK_KEYS}
+    grads = regroup(leaves)
+    assert [g.shape for g in grads] == [p.shape for p in tree_leaves(params)]
+
+
+def test_stack_under_an_unnamed_key_is_split():
+    """A stack under a top-level key no module names is split per layer
+    all the same, and its regrouped gradient is the stacked one."""
+    specs = {"embed": ParamSpec((8, 4), ("vocab", "embed")),
+             "towers": {"norm": ParamSpec((3, 4), ("layers", "embed")),
+                        "w": ParamSpec((3, 4, 2), ("layers", "embed", "mlp"))}}
+    params = torch_materialize(torch.Generator().manual_seed(0), specs,
+                         torch.float32, "cpu")
+    live, leaves, regroup = _differentiable(params, specs)
+    assert isinstance(live["embed"], torch.Tensor)
+    for k, L in (("norm", 3), ("w", 3)):
+        assert isinstance(live["towers"][k], list)
+        assert len(live["towers"][k]) == L
+    loss = live["embed"].sum() + sum(
+        (i + 1) * w.sum() for i, w in enumerate(live["towers"]["w"]))
+    grads = regroup(list(torch.autograd.grad(loss, leaves,
+                                             allow_unused=True,
+                                             materialize_grads=True)))
+    want = torch.arange(1, 4, dtype=torch.float32)[:, None, None]
+    assert torch.equal(grads[2], want.expand(3, 4, 2))
+    assert grads[1].shape == (3, 4) and not grads[1].any()
 
 
 # ---------------------------------------------------------------- hybrid

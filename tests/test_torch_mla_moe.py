@@ -24,6 +24,7 @@ from repro_torch.core.lowdiff import LowDiff
 from repro_torch.data.synthetic import make_batch
 from repro_torch.kernels import build, ref
 from repro_torch.models import mla, moe, ops
+from repro_torch.models.param import is_spec, is_stacked
 from repro_torch.models.registry import build_model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -377,21 +378,24 @@ def test_layer_is_the_parent_formulation(dtype, held):
 
 
 def test_dense_layers_get_per_layer_autograd_leaves():
-    """``dense_layers`` is a stacked key: each of its leaves is handed to
-    the model as per-layer slices, each its own autograd leaf, and the
-    step's gradient tree regroups them into the stacked shape."""
-    assert "dense_layers" in steps.STACKED
+    """``dense_layers`` is a stack (every spec under it ``is_stacked``):
+    each of its leaves is handed to the model as per-layer slices, each
+    its own autograd leaf, and the step's gradient tree regroups them
+    into the stacked shape."""
     cfg = get_config("deepseek-v2-lite").reduced().replace(n_layers=3)
     model = build_model(cfg)
+    specs = tree_leaves(model.specs, is_leaf=is_spec)
+    assert all(is_stacked(s) for s in
+               tree_leaves(model.specs["dense_layers"], is_leaf=is_spec))
     params = model.init(0, device="cpu")
     assert params["dense_layers"]["attn"]["wkv_a"].shape[0] == 1
     assert params["layers"]["attn"]["wkv_a"].shape[0] == 2
-    live, leaves, regroup = steps._differentiable(params)
+    live, leaves, regroup = steps._differentiable(params, model.specs)
     wq = live["dense_layers"]["attn"]["wq"]
     assert isinstance(wq, list) and len(wq) == 1 and wq[0].is_leaf
     assert isinstance(live["layers"]["moe"]["we_g"], list)
-    n = sum(p.shape[0] if k in steps.STACKED else 1
-            for k, v in params.items() for p in tree_leaves(v))
+    n = sum(p.shape[0] if is_stacked(s) else 1
+            for p, s in zip(tree_leaves(params), specs))
     assert len(leaves) == n
     _, _, g = steps._grads(model, params,
                            make_batch(cfg, 16, 2, step=0), 1)
