@@ -5,13 +5,14 @@ are the benchmark's (``chipbench/``); the times printed here size the
 kernels against their plain versions and byte bounds.
 
     python3 chip_smoke.py                    # every phase, full-width gpt2-l
-    python3 chip_smoke.py --only kernels     # the build, phases 2, A, X, M
+    python3 chip_smoke.py --only kernels     # the build, phases 2, A, X, M, T
     python3 chip_smoke.py --only families    # the build and phase I
     python3 chip_smoke.py --only serve       # the build and phase J
     python3 chip_smoke.py --only dist        # the build and phase K
     python3 chip_smoke.py --only roof        # the build and phase L
     python3 chip_smoke.py --only head        # the build and phase X
     python3 chip_smoke.py --only moe         # the build and phase M
+    python3 chip_smoke.py --only attn        # the build and phase T
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -50,6 +51,13 @@ M. the MoE dispatch through a slot map (``phase_moe``): at the MoE
    dispatch and the combine, forward and backward, against the
    formulation before the slot map: outputs and expert-buffer gradients
    bitwise, one launch of the plan and two of each gather;
+T. attention's blocked kernels (``phase_attn``): at the cells' shapes,
+   the forward and the backward against their plain versions and bitwise
+   on a second run, each kernel timed against its bound beside the plain
+   body and ``F.scaled_dot_product_attention`` (``library_ms``), and a
+   profile with no library GEMM; phases 3, 4, C, D, F and I then require
+   the kernels at their counts (``_attn_launches``) for every
+   configuration with attention that they train;
 3. LowDiff top-k + EF on full-width gpt2-l (batch 4, seq 64, f=20,
    b=2), resumed at step 19 so that its 20 steps write a full and 19
    differentials, traced: the tracer's clock mapping within
@@ -130,6 +138,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 REPS = 20                        # timed repetitions per kernel
 
 
@@ -176,12 +185,12 @@ def abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def _bound(r) -> None:
-    """bound_ms / bound_by of a timing record from its bytes and ops."""
-    r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
-                              r["ops"] / FP32_FLOPS)
+def _bound(r, peak: float = FP32_FLOPS) -> None:
+    """bound_ms / bound_by of a timing record from its bytes and ops
+    (``peak`` operations a second)."""
+    r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S, r["ops"] / peak)
     r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
-                     >= r["ops"] / FP32_FLOPS else "operations")
+                     >= r["ops"] / peak else "operations")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -1144,6 +1153,8 @@ PATH_KERNELS = {"topk": ("topk_select", "topk_scatter", "topk_apply"),
 HEAD_KERNELS = ("xent_rows", "xent_grad_split")
 #: the MoE dispatch's kernels (phase M), launched by every MoE layer call
 MOE_KERNELS = ("moe_plan", "moe_slot_gather", "moe_assign_gather")
+#: attention's kernels (phase T), launched by every bf16 training step
+ATTN_KERNELS = ("attn_fwd", "attn_bwd_dq", "attn_bwd")
 
 
 def _head_launches(cfg, dev, seq: int, steps: int) -> int:
@@ -1170,6 +1181,37 @@ def _head_check(cfg, dev, seq: int, steps: int, tag: str) -> None:
     log(f"{tag} loss head launches {got} ({steps} steps)")
 
 
+def _attn_launches(cfg, dev, steps: int) -> dict:
+    """Launches of each attention kernel that ``steps`` training steps of
+    ``cfg`` make where the compute dtype is bf16 on the card (none
+    otherwise): per micro-batch, one forward a call and one more in remat's
+    recompute, one of each backward kernel a call. A call is one layer of
+    the decoder families, the encoder's layers and the decoder's self- and
+    cross-attention in the audio family, none in xLSTM."""
+    calls = (0 if cfg.arch_type == "ssm" else
+             cfg.n_encoder_layers + 2 * cfg.n_layers
+             if cfg.arch_type == "audio" else cfg.n_layers)
+    if dev.type != "cuda" or cfg.compute_dtype != "bfloat16":
+        calls = 0
+    calls *= steps * cfg.grad_accum
+    return {"attn_fwd": calls * (2 if cfg.remat else 1),
+            "attn_bwd_dq": calls, "attn_bwd": calls}
+
+
+def _attn_check(cfg, dev, steps: int, tag: str) -> None:
+    """The attention kernels' launches since the last reset, against
+    :func:`_attn_launches`: a configuration with attention that trains on
+    the card in bf16 must launch them."""
+    from repro_torch.kernels import build
+    got = {k: build.LAUNCHES[k] for k in ATTN_KERNELS}
+    want = _attn_launches(cfg, dev, steps)
+    if got != want:
+        fail(f"{tag} attention launched {got}, want {want} ({steps} steps x "
+             f"{cfg.grad_accum} micro-batches, {cfg.arch_type}, "
+             f"{cfg.n_layers} layers, remat {cfg.remat})")
+    log(f"{tag} attention launches {got} ({steps} steps)")
+
+
 def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
                steps: int = 20, start: int = 19, full_interval: int = 20,
                tag: str = "", batch: int = 4, seq: int = 64,
@@ -1182,8 +1224,9 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
     ``full_interval`` and the differentials after it; then fail, recover
     by device replay (bitwise) and, with ``parallel``, by parallel
     replay (within the reassociation tolerance), and require the
-    compressor's kernels to have launched, and the loss head's kernels
-    once a chunk per micro-batch and step (``_head_check``). With top-k,
+    compressor's kernels to have launched, the loss head's kernels once
+    a chunk per micro-batch and step (``_head_check``) and attention's at
+    their counts (``_attn_check``). With top-k,
     K4 and K2 are also held against their plain versions on the last
     step's own leaves and payload. With ``traced``, the run's spans meet
     ``_trace_checks`` and its last step is profiled: every launch of the
@@ -1231,6 +1274,7 @@ def phase_main(cfg, dev, ckdir: str, compressor: str = "topk",
         TRACER.disable()
         TRACER.clear()
     _head_check(cfg, dev, seq, steps, tag)
+    _attn_check(cfg, dev, steps, tag)
     log(f"{tag} step_ms={[round(s, 3) for s in step_ms]}; differential "
         f"bytes per step: {diff_bytes[-1]} (dense f32 gradient "
         f"{4 * model.n_params()})")
@@ -1316,6 +1360,7 @@ def phase_dense(cfg, dev, steps: int = 3, tag: str = "[dense]"):
     if launches["adam_tile_update"] <= 0:
         fail("--strategy none did not launch adam_tile_update")
     _head_check(cfg, dev, 64, steps, tag)
+    _attn_check(cfg, dev, steps, tag)
     if not all(math.isfinite(l) for l in losses):
         fail(f"non-finite dense loss {losses}")
     log(f"{tag} step_ms={[round(s, 3) for s in step_ms]} "
@@ -1920,7 +1965,7 @@ def phase_families(dev, ckdir: str):
     from repro_torch.configs.base import DTYPES
     from repro_torch.models.registry import build_model
     total = {k: 0 for k in PATH_KERNELS["topk"] + HEAD_KERNELS
-             + MOE_KERNELS}
+             + MOE_KERNELS + ATTN_KERNELS}
     for tag, arch, cut, batch, seq, parallel in FAMILIES:
         full = get_config(arch)
         cfg = full.replace(**cut)
@@ -3684,6 +3729,196 @@ def phase_moe(dev, reps: int = REPS) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase T
+#: the benchmark cells' attention, one layer and micro-batch: (B, S, H,
+#: KV, d_qk, d_v), causal
+ATTN_SHAPES = {"gpt2l": (4, 1024, 20, 20, 64, 64),
+               "dsmoe": (1, 4096, 16, 16, 128, 128),
+               "dsv2lite": (1, 4096, 16, 16, 192, 128)}
+#: library GEMMs: none may run in the kernels' forward and backward
+ATTN_FORBIDDEN = ("gemm", "xmma", "nvjet", "cutlass")
+
+
+def _attn_inputs(shape: str, dev):
+    """Scaled q, k, v and the output gradient, bf16."""
+    import torch
+    B, S, H, KV, D, Dv = ATTN_SHAPES[shape]
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shp, scale=1.0):
+        return (torch.randn(*shp, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+    return (randn(B, S, H, D, scale=D ** -0.5), randn(B, S, KV, D, scale=2.0),
+            randn(B, S, KV, Dv), randn(B, S, H, Dv))
+
+
+def _attn_work(shape: str) -> dict:
+    """{kernel: (operations, bytes)} of one call at ``shape``: the live
+    tiles' products (the kernels' tiles, clipped at the edges; dS's split
+    as three products, p's in dV as two) and each input read and output
+    written once."""
+    from repro_torch.kernels import attention as ka, ref
+    B, S, H, KV, D, Dv = ATTN_SHAPES[shape]
+    t = ka.tiles(D)
+
+    def live(kind):
+        bm, bn = t[kind][:2]
+        n = 0
+        if kind == "dkdv":
+            for n0 in range(0, S, bn):
+                lo, hi = ref.attention_query_range(n0, bm, bn, S, True, 0)
+                n += (hi - lo) * (min(n0 + bn, S) - n0)
+        else:
+            for m0 in range(0, S, bm):
+                lo, hi = ref.attention_key_range(m0, bm, bn, S, True, 0)
+                n += (min(m0 + bm, S) - m0) * (hi - lo)
+        return n * B * H
+    q, kv, o, rows = B * S * H * D, B * S * KV * (D + Dv), B * S * H * Dv, \
+        B * H * S
+    return {"attn_fwd": (2 * (D + Dv) * live("fwd"),
+                         2 * (q + kv + o) + 4 * o + 4 * rows),
+            "attn_bwd_dq": (2 * (4 * D + Dv) * live("dq"),
+                            2 * (q + kv + o) + 4 * o + 4 * rows + 4 * rows
+                            + 2 * q),
+            "attn_bwd": (2 * (4 * D + 3 * Dv) * live("dkdv"),
+                         2 * (q + kv + o) + 8 * rows + 2 * kv)}
+
+
+def _kernel_ms(fn, names, reps: int) -> dict:
+    """{kernel name: mean card ms a call} of ``fn``'s kernels whose names
+    hold one of ``names``, from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {n: sum(e.device_time_total for e in prof.key_averages()
+                   if n in e.key) / 1e3 / reps for n in names}
+
+
+def phase_attn(dev, reps: int = REPS) -> dict:
+    """T. attention's blocked kernels (``--only attn``): at each cell's
+    shape, the forward and the backward against their plain versions
+    (the tolerances of ``tests/test_torch_attention_card.py``) and
+    bitwise equal on a second run; each kernel timed against its bound
+    (the live tiles' products at 989e12 or its bytes at 3.35e12), beside
+    the plain body's forward and backward (``ops._attention_plain``, the
+    path before the kernels) and ``F.scaled_dot_product_attention``'s
+    (``library_ms``); one launch of each kernel a call; a profile of the
+    forward and backward in which no library GEMM runs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import attention as ka, build, ref
+    from repro_torch.models import ops
+    t_phase = time.perf_counter()
+    out = {}
+    for shape in ATTN_SHAPES:
+        q, k, v, do = _attn_inputs(shape, dev)
+        B, S, H, KV, D, Dv = ATTN_SHAPES[shape]
+        t = ka.tiles(D)
+        n0 = dict(build.LAUNCHES)
+        o, lse, o32 = ka.attn_fwd(q, k, v, True, 0, True)
+        dq, dk, dv = ka.attn_bwd(q, k, v, o32, lse, do, True, 0)
+        launches = {n: build.LAUNCHES[n] - n0[n] for n in ATTN_KERNELS}
+        if launches != dict.fromkeys(ATTN_KERNELS, 1):
+            fail(f"[attn] {shape}: launches {launches}")
+        ro, rlse, ro32 = ref.attention_blocked_ref(
+            q, k, v, causal=True, block_m=t["fwd"][0], block_n=t["fwd"][1])
+        rdq, rdk, rdv = ref.attention_blocked_bwd_ref(
+            q, k, v, ro32, rlse, do, causal=True, dq_tiles=t["dq"][:2],
+            dkdv_tiles=t["dkdv"][:2])
+        gaps = {name: float((a.double() - b.double()).norm()
+                            / b.double().norm())
+                for name, a, b in (("o32", o32, ro32), ("o", o, ro),
+                                   ("dq", dq, rdq), ("dk", dk, rdk),
+                                   ("dv", dv, rdv))}
+        lse_err = float((lse - rlse).abs().max())
+        errs = {"attn_fwd": abs_err(o, ro), "attn_bwd_dq": abs_err(dq, rdq),
+                "attn_bwd": max(abs_err(dk, rdk), abs_err(dv, rdv))}
+        again = ka.attn_fwd(q, k, v, True, 0, True) + ka.attn_bwd(
+            q, k, v, o32, lse, do, True, 0)
+        same = all(bits_equal(a, b) for a, b in zip(
+            (o, lse, o32, dq, dk, dv), again))
+        log(f"[attn] {shape} B {B} S {S} H {H}/{KV} d {D}/{Dv}, tiles {t}: "
+            f"norm gaps to the plain versions "
+            + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items())
+            + f", lse max {lse_err:.3e}; a second run bitwise: {same}")
+        if (gaps["o32"] > 2.0 ** -12 or lse_err > 2.0 ** -16
+                or max(gaps[n] for n in ("o", "dq", "dk", "dv")) > 2.0 ** -10
+                or not same):
+            fail(f"[attn] {shape}: the kernels are off their plain versions "
+                 f"or not reproducible")
+        del again, ro, rlse, ro32, rdq, rdk, rdv
+        work = _attn_work(shape)
+        fwd_ms = timed(lambda: ka.attn_fwd(q, k, v, True, 0, True), reps)
+        bwd_ms = timed(lambda: ka.attn_bwd(q, k, v, o32, lse, do, True, 0),
+                       reps)
+        split = _kernel_ms(lambda: ka.attn_bwd(q, k, v, o32, lse, do, True,
+                                               0),
+                           ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel"),
+                           reps)
+        dq_share = split["attn_bwd_dq_kernel"] / sum(split.values())
+
+        def plain(grad):
+            qq, kk, vv = (x.detach().requires_grad_(grad) for x in (q, k, v))
+            y = ops._attention_plain(qq, kk, vv, True, 0)
+            if grad:
+                y.backward(do)
+
+        def library(grad):
+            qq, kk, vv = (x.detach().transpose(1, 2).requires_grad_(grad)
+                          for x in (q, k, v))
+            y = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                               scale=1.0,
+                                               enable_gqa=KV != H)
+            if grad:
+                y.backward(do.transpose(1, 2))
+        plain_f = timed(lambda: plain(False), 3)
+        plain_b = timed(lambda: plain(True), 3) - plain_f
+        lib_f = timed(lambda: library(False), reps)
+        lib_b = timed(lambda: library(True), reps) - lib_f
+        for name, ms, pl, lib in (
+                ("attn_fwd", fwd_ms, plain_f, lib_f),
+                ("attn_bwd_dq", bwd_ms * dq_share, None, None),
+                ("attn_bwd", bwd_ms * (1 - dq_share), plain_b, lib_b)):
+            ops_, nbytes = work[name]
+            r = {"ms": ms, "plain_ms": pl, "library_ms": lib, "ops": ops_,
+                 "bytes": nbytes, "max_abs_err": errs[name]}
+            _bound(r, BF16_FLOPS)
+            out[f"{name}.{shape}"] = r
+            log(f"[attn] {shape} {name}: {ms:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{100 * r['bound_ms'] / ms:.1f}%; {ops_ / ms / 1e9:.1f} "
+                f"TFLOP/s)"
+                + (f", plain body {pl:.4f} ms, SDPA {lib:.4f} ms"
+                   if pl is not None else
+                   " (the backward's two kernels: "
+                   f"{bwd_ms:.4f} ms; the plain body's and SDPA's "
+                   f"backward on the attn_bwd row)"))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+            ka.attention(qq, kk, vv, causal=True).backward(do)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.device_time_total / 1e3
+                   for e in prof.key_averages() if e.device_time_total > 0}
+        bad = [n for n in kernels if any(f in n.lower()
+                                         for f in ATTN_FORBIDDEN)]
+        log(f"[attn] {shape} profile of forward + backward: "
+            + ", ".join(f"{n[:40]} {ms:.3f} ms" for n, ms in sorted(
+                kernels.items(), key=lambda kv: -kv[1])[:6]))
+        if bad:
+            fail(f"[attn] {shape}: library GEMMs in attention: {bad}")
+        del q, k, v, do, o, lse, o32, dq, dk, dv
+        torch.cuda.empty_cache()
+    log(f"[time] phase T: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- main
 KERNELS = [
     ("topk_select", "src/repro_torch/kernels/csrc/topk.cu",
@@ -3719,10 +3954,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("all", "kernels", "families",
                                        "serve", "dist", "roof", "head",
-                                       "moe"),
-                    default="all", help="kernels: stop after phases A, X "
-                    "and M; families / serve / dist / roof / head / moe: the "
-                    "build and phase I / J / K / L / X / M alone")
+                                       "moe", "attn"),
+                    default="all", help="kernels: stop after phases A, X, "
+                    "M and T; families / serve / dist / roof / head / moe / "
+                    "attn: the build and phase I / J / K / L / X / M / T "
+                    "alone")
     ap.add_argument("--roof-cpu", default=None, metavar="OUT",
                     help=argparse.SUPPRESS)   # phase L's child process
     ap.add_argument("--ckpt-dir", default=os.path.join(HERE, "build",
@@ -3758,13 +3994,16 @@ def main() -> int:
     if args.only in ("all", "roof"):
         child = _start_roof_cpu()
         atexit.register(_stop_child, child[0])
-    if args.only in ("families", "serve", "dist", "roof", "head", "moe"):
+    if args.only in ("families", "serve", "dist", "roof", "head", "moe",
+                     "attn"):
         if args.only == "dist":
             got = phase_dist(dev)
         elif args.only == "head":
             got = {k: v["ms"] for k, v in phase_head(dev).items()}
         elif args.only == "moe":
             got = {k: v["ms"] for k, v in phase_moe(dev).items()}
+        elif args.only == "attn":
+            got = {k: v["ms"] for k, v in phase_attn(dev).items()}
         elif args.only == "roof":
             got = phase_roof(cfg, dev, smi, child)
         else:
@@ -3785,6 +4024,8 @@ def main() -> int:
     log(f"[time] + phase X: {time.perf_counter() - t_all:.1f} s")
     moe_res = phase_moe(dev)
     log(f"[time] + phase M: {time.perf_counter() - t_all:.1f} s")
+    attn = phase_attn(dev)
+    log(f"[time] + phase T: {time.perf_counter() - t_all:.1f} s")
     build.reset_launches()
     # no training or recovery path packs or decodes alone on the card
     # (the replica quantizes on the host, and K7 decodes inside itself,
@@ -3795,10 +4036,11 @@ def main() -> int:
     if args.only == "all":
         got, diff_bytes = phase_main(cfg, dev, args.ckpt_dir, traced=True)
         launches.update({k: v for k, v in got.items()
-                         if k in PATH_KERNELS["topk"] + HEAD_KERNELS})
+                         if k in PATH_KERNELS["topk"] + HEAD_KERNELS
+                         + ATTN_KERNELS})
         got, dense_ms = phase_dense(cfg, dev)
         launches["adam_tile_update"] = got["adam_tile_update"]
-        for k in HEAD_KERNELS:
+        for k in HEAD_KERNELS + ATTN_KERNELS:
             launches[k] += got[k]
         log(f"[time] + phases 3, 4: {time.perf_counter() - t_all:.1f} s")
         # at full width, cut in depth to 6 of 36 layers: the host-bound
@@ -3829,6 +4071,8 @@ def main() -> int:
         for k in PATH_KERNELS["topk"]:
             launches[k] += granite[k]
         launches["adam_tile_update"] += stablelm["adam_tile_update"]
+        for k in ATTN_KERNELS:
+            launches[k] += granite[k] + stablelm[k]
         log(f"[time] + phase F: {time.perf_counter() - t_all:.1f} s")
         got = phase_tiers(dev, args.ckpt_dir)
         for k in PATH_KERNELS["topk"]:
@@ -3839,7 +4083,8 @@ def main() -> int:
             launches[k] += v
         log(f"[time] + phase H: {time.perf_counter() - t_all:.1f} s")
         got = phase_families(dev, args.ckpt_dir)
-        for k in PATH_KERNELS["topk"] + HEAD_KERNELS + MOE_KERNELS:
+        for k in (PATH_KERNELS["topk"] + HEAD_KERNELS + MOE_KERNELS
+                  + ATTN_KERNELS):
             launches[k] = launches.get(k, 0) + got[k]
         log(f"[time] + phase I: {time.perf_counter() - t_all:.1f} s")
         got = phase_serve(dev, args.ckpt_dir)
@@ -3885,6 +4130,19 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
+    # attention's kernels replace no pallas_call (the JAX package's
+    # attention is jnp that XLA compiles); timed at DeepSeek-V2-Lite's
+    # shape, launched by the training paths above
+    for name in ATTN_KERNELS:
+        r = attn[f"{name}.dsv2lite"]
+        kernels.append({"name": name, "route": "triton",
+                        "source": "src/repro_torch/kernels/csrc/"
+                                  "attention_triton.py",
+                        "replaces": None, "launches": launches.get(name, 0),
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -10,6 +10,12 @@ stream as ``c_void_p`` / ``c_longlong`` / ``c_int`` and returns the
 exception. Nothing here runs at import time: the CPU tests import every
 module of the port on a machine with no ``nvcc``.
 
+Attention's kernels are Triton (``csrc/attention_triton.py``):
+:func:`triton_module` imports that source at its first launch, and
+Triton compiles each kernel at its first call into a cache under the
+same build directory, so a second process of the same checkout loads
+them.
+
 Each kernel's wrapper keeps a plain-int launch count in
 :data:`LAUNCHES`, incremented where it launches and nowhere else.
 """
@@ -17,11 +23,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
+from types import ModuleType
 from typing import Dict, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -43,9 +52,11 @@ LAUNCHES: Dict[str, int] = {"topk_select": 0, "topk_scatter": 0,
                             "quantize": 0, "dequantize": 0,
                             "quant_apply": 0, "xent_rows": 0,
                             "xent_grad_split": 0, "moe_plan": 0,
-                            "moe_slot_gather": 0, "moe_assign_gather": 0}
+                            "moe_slot_gather": 0, "moe_assign_gather": 0,
+                            "attn_fwd": 0, "attn_bwd": 0, "attn_bwd_dq": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_triton: Dict[str, ModuleType] = {}
 _lock = threading.Lock()
 
 
@@ -163,6 +174,24 @@ def lib(name: str) -> ctypes.CDLL:
                 build([name])
             _libs[name] = ctypes.CDLL(path)
         return _libs[name]
+
+
+def triton_module(name: str) -> ModuleType:
+    """The Triton source ``csrc/<name>.py``, imported at first use. Its
+    kernels compile at their first call into ``<build_dir>/triton``
+    (``TRITON_CACHE_DIR`` where it is set already)."""
+    with _lock:
+        if name not in _triton:
+            os.environ.setdefault("TRITON_CACHE_DIR",
+                                  os.path.join(build_dir(), "triton"))
+            spec = importlib.util.spec_from_file_location(
+                f"repro_torch.kernels.csrc_{name}",
+                os.path.join(CSRC, f"{name}.py"))
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[spec.name] = mod
+            spec.loader.exec_module(mod)
+            _triton[name] = mod
+        return _triton[name]
 
 
 def entry(name: str, symbol: str):

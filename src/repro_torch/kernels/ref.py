@@ -384,3 +384,185 @@ def moe_drop_row_combine_ref(ye: torch.Tensor, gate: torch.Tensor,
         w = (gate[:, k] * valid_k[:, k]).to(dt)[:, None]
         y = y + y_flat[dest_k[:, k]] * w
     return y
+
+
+# ---------------------------------------------------------------- attention
+#: the masked score, as the reference's (repro/models/ops.py)
+ATTN_NEG_INF = -1e30
+
+
+def attention_key_range(start_m: int, block_m: int, block_n: int, Sk: int,
+                        causal: bool, window: int) -> tuple:
+    """(lo, hi): the attention kernels' live key tiles for the query rows
+    [start_m, start_m + block_m) start at lo, lo + block_n, ... below hi.
+    Tiles wholly above the diagonal (``causal``) or wholly at or below
+    ``qpos - window`` (``window`` > 0) are skipped."""
+    lo, hi = 0, Sk
+    if causal:
+        hi = min(Sk, start_m + block_m)
+    if window > 0:
+        lo = max(start_m - window + 1, 0) // block_n * block_n
+    return lo, hi
+
+
+def attention_query_range(start_n: int, block_m: int, block_n: int,
+                          Sq: int, causal: bool, window: int) -> tuple:
+    """(lo, hi): the live query tiles of the keys [start_n, start_n +
+    block_n), as :func:`attention_key_range`."""
+    lo, hi = 0, Sq
+    if causal:
+        lo = start_n // block_m * block_m
+    if window > 0:
+        hi = min(Sq, start_n + block_n - 1 + window)
+    return lo, hi
+
+
+def _attn_live(m0, m1, n0, n1, causal: bool, window: int, device):
+    """(m1 - m0, n1 - n0) bool: query m sees key n."""
+    qpos = torch.arange(m0, m1, device=device)[:, None]
+    kpos = torch.arange(n0, n1, device=device)[None, :]
+    ok = torch.ones((m1 - m0, n1 - n0), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def _heads_first(x: torch.Tensor, G: int = 1) -> torch.Tensor:
+    """(B, S, KV, D) as f32 (B, KV * G, S, D): head h reads KV head
+    h // G."""
+    return x.float().repeat_interleave(G, dim=2).transpose(1, 2)
+
+
+def attention_blocked_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                          block_m: int = 128, block_n: int = 64):
+    """The attention forward kernel's arithmetic, tile by tile.
+
+    q (B, Sq, H, D) already scaled, k (B, Sk, KV, D), v (B, Sk, KV, Dv),
+    H % KV == 0. For each query tile of ``block_m`` rows, the live key
+    tiles of ``block_n`` keys (:func:`attention_key_range`) in order:
+    s = q.k^T as f32 products of the inputs, masked to -1e30; running
+    max m and sum l in f32, the accumulator rescaled by exp(m_old - m);
+    p = exp(s - m) rounded to v's dtype once, against the running max of
+    its tile, for the f32 product p.v. Returns (o in q's dtype, lse (B,
+    H, Sq) f32 = m + log l, o32: the f32 normalised output)."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G, Dv = H // KV, v.shape[-1]
+    kf, vf, qf = _heads_first(k, G), _heads_first(v, G), _heads_first(q)
+    o32 = torch.empty((B, H, Sq, Dv), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    for m0 in range(0, Sq, block_m):
+        m1 = min(m0 + block_m, Sq)
+        qt = qf[:, :, m0:m1]
+        acc = torch.zeros((B, H, m1 - m0, Dv), dtype=torch.float32,
+                          device=q.device)
+        mx = torch.full((B, H, m1 - m0), ATTN_NEG_INF, device=q.device)
+        l = torch.zeros((B, H, m1 - m0), device=q.device)
+        lo, hi = attention_key_range(m0, block_m, block_n, Sk, causal,
+                                     window)
+        for n0 in range(lo, hi, block_n):
+            n1 = min(n0 + block_n, Sk)
+            s = qt @ kf[:, :, n0:n1].transpose(-1, -2)
+            s = torch.where(_attn_live(m0, m1, n0, n1, causal, window,
+                                       q.device), s,
+                            torch.full((), ATTN_NEG_INF, device=q.device))
+            m_new = torch.maximum(mx, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(mx - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p.to(v.dtype).float() @ vf[
+                :, :, n0:n1]
+            mx = m_new
+        l = l.clamp_min(1e-20)
+        o32[:, :, m0:m1] = acc / l[..., None]
+        lse[:, :, m0:m1] = mx + torch.log(l)
+    o32 = o32.transpose(1, 2).contiguous()
+    return o32.to(q.dtype), lse, o32
+
+
+def _split3_parts(x: torch.Tensor):
+    """:func:`split3_bf16` of ``x`` as three f32 tensors of its shape."""
+    return split3_bf16(x.reshape(-1)).float().reshape(3, *x.shape).unbind(0)
+
+
+def _split2_parts(x: torch.Tensor):
+    """f32 ``x`` as (hi, mid) = (bf16(x), bf16(x - hi)) in f32: x to 16
+    significant bits."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def attention_blocked_bwd_ref(q, k, v, o32, lse, do, *, causal: bool = True,
+                              window: int = 0, dq_tiles=(64, 64),
+                              dkdv_tiles=(64, 64)):
+    """The attention backward kernels' arithmetic, tile by tile: (dq, dk,
+    dv) in the inputs' dtype from :func:`attention_blocked_ref`'s o32
+    and lse and the output gradient ``do``.
+
+    delta = rowsum(do * o32) in f32. dq, per query tile of ``dq_tiles``
+    = (block_m, block_n) over its live key tiles: p = exp(s - lse) (0
+    where masked), dp = do.v^T, ds = p (dp - delta), dq += hi.k + mid.k
+    + lo.k with (hi, mid, lo) = split3_bf16(ds). dk and dv, per key tile
+    of ``dkdv_tiles`` and KV head, over the G query heads of its group
+    and their live query tiles (:func:`attention_query_range`): dv +=
+    hi^T.do + mid^T.do with (hi, mid) = :func:`_split2_parts` of the
+    normalised p (p itself for f32 inputs), dk += the split of ds^T
+    times q. Every product is f32 of the inputs (exact for bf16), every
+    sum f32; the three leave in q's, k's and v's dtype."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G, Dv = H // KV, v.shape[-1]
+    dev = q.device
+    qf, dof = _heads_first(q), _heads_first(do)
+    kf, vf = _heads_first(k), _heads_first(v)
+    delta = (dof * o32.transpose(1, 2)).sum(-1)            # (B, H, Sq)
+    zero = torch.zeros((), device=dev)
+    dq = torch.empty((B, H, Sq, D), dtype=torch.float32, device=dev)
+    bm, bn = dq_tiles
+    for m0 in range(0, Sq, bm):
+        m1 = min(m0 + bm, Sq)
+        acc = torch.zeros((B, H, m1 - m0, D), dtype=torch.float32,
+                          device=dev)
+        lo, hi = attention_key_range(m0, bm, bn, Sk, causal, window)
+        for n0 in range(lo, hi, bn):
+            n1 = min(n0 + bn, Sk)
+            kt = kf[:, :, n0:n1].repeat_interleave(G, dim=1)
+            vt = vf[:, :, n0:n1].repeat_interleave(G, dim=1)
+            s = qf[:, :, m0:m1] @ kt.transpose(-1, -2)
+            p = torch.where(_attn_live(m0, m1, n0, n1, causal, window, dev),
+                            torch.exp(s - lse[:, :, m0:m1, None]), zero)
+            dp = dof[:, :, m0:m1] @ vt.transpose(-1, -2)
+            for part in _split3_parts(p * (dp - delta[:, :, m0:m1, None])):
+                acc = acc + part @ kt
+        dq[:, :, m0:m1] = acc
+    dk = torch.empty((B, KV, Sk, D), dtype=torch.float32, device=dev)
+    dv = torch.empty((B, KV, Sk, Dv), dtype=torch.float32, device=dev)
+    bm, bn = dkdv_tiles
+    for n0 in range(0, Sk, bn):
+        n1 = min(n0 + bn, Sk)
+        kt, vt = kf[:, :, n0:n1], vf[:, :, n0:n1]
+        dka = torch.zeros((B, KV, n1 - n0, D), device=dev)
+        dva = torch.zeros((B, KV, n1 - n0, Dv), device=dev)
+        lo, hi = attention_query_range(n0, bm, bn, Sq, causal, window)
+        for g in range(G):
+            heads = torch.arange(KV, device=dev) * G + g
+            for m0 in range(lo, hi, bm):
+                m1 = min(m0 + bm, Sq)
+                qt = qf[:, heads, m0:m1]
+                dot = dof[:, heads, m0:m1]
+                sT = kt @ qt.transpose(-1, -2)
+                ok = _attn_live(m0, m1, n0, n1, causal, window, dev).T
+                pT = torch.where(ok, torch.exp(
+                    sT - lse[:, heads, None, m0:m1]), zero)
+                for part in (_split2_parts(pT) if v.dtype == torch.bfloat16
+                             else (pT,)):
+                    dva = dva + part @ dot
+                dpT = vt @ dot.transpose(-1, -2)
+                dsT = pT * (dpT - delta[:, heads, None, m0:m1])
+                for part in _split3_parts(dsT):
+                    dka = dka + part @ qt
+        dk[:, :, n0:n1], dv[:, :, n0:n1] = dka, dva
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))

@@ -18,7 +18,12 @@ logits once. Its backward writes the f32 logit gradient as three bf16
 terms whose sum is that gradient bit for bit, so it too enters the
 backward's tensor-core GEMMs at f32 precision. The CPU, the dry run's
 fake tensors and an f32 compute dtype keep the up-cast path
-(:func:`_xent_upcast`). Attention's einsums still multiply up-casts.
+(:func:`_xent_upcast`).
+
+Attention takes the same route: for bf16 CUDA tensors :func:`attention`
+runs ``kernels/attention.py``, one blocked kernel for the forward and
+two for the backward on tensor cores, with no (Sq, Sk) tile in device
+memory; the CPU, fake tensors and f32 keep the plain body below.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import attention as attn_kernels
 from repro_torch.kernels import xent
 
 NEG_INF = -1e30
@@ -103,19 +109,29 @@ def attention(q, k, v, *, causal=True, window=0, scale=None):
     """Causal GQA attention with an f32 masked softmax.
 
     q: (B, Sq, H, D); k: (B, Sk, KV, D), v: (B, Sk, KV, Dv) with H % KV
-    == 0. The reference's online softmax over one score tile (its tiles
-    are 512 x 1024, so every sequence up to 512 is one tile) in plain
-    ops: q scaled by ``scale`` (default ``1/sqrt(D)``) rounded to its
-    dtype, scores in f32, masked to NEG_INF, un-normalized probabilities
-    cast to v's dtype for the value product, normalized by their f32 sum
-    last. Returns (B, Sq, H, Dv).
+    == 0. q is scaled by ``scale`` (default ``1/sqrt(D)``) rounded to its
+    dtype. bf16 tensors on the card go to the blocked kernels
+    (``kernels/attention.py``: the reference's online softmax over key
+    tiles, dead tiles skipped). Otherwise the reference's online softmax
+    over one score tile (its tiles are 512 x 1024, so every sequence up
+    to 512 is one tile) in plain ops: scores in f32, masked to NEG_INF,
+    un-normalized probabilities cast to v's dtype for the value product,
+    normalized by their f32 sum last. Returns (B, Sq, H, Dv).
     """
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    qr = q * as_dtype(scale, q.dtype)
+    if _tensor_cores(q):
+        return attn_kernels.attention(qr, k, v, causal=causal, window=window)
+    return _attention_plain(qr, k, v, causal, window)
+
+
+def _attention_plain(q, k, v, causal=True, window=0):
+    """:func:`attention`'s plain body, of the scaled ``q``."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    if scale is None:
-        scale = 1.0 / D ** 0.5
-    qr = (q * as_dtype(scale, q.dtype)).reshape(B, Sq, KV, G, D)
+    qr = q.reshape(B, Sq, KV, G, D)
     s = torch.einsum("bqkgd,bckd->bqkgc", qr.float(), k.float())
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
@@ -312,11 +328,13 @@ class _TensorCoreXent(torch.autograd.Function):
         return dh, dw, None, None, None
 
 
-def _tensor_core_head(h) -> bool:
-    if not (h.is_cuda and h.dtype == torch.bfloat16):
+def _tensor_cores(x) -> bool:
+    """The head and attention run on tensor cores for ``x`` bf16 on the
+    card, and not for the dry run's fake tensors."""
+    if not (x.is_cuda and x.dtype == torch.bfloat16):
         return False
     from torch._subclasses.fake_tensor import is_fake
-    return not is_fake(h)
+    return not is_fake(x)
 
 
 def chunked_softmax_xent(h, w_lm, targets, *, chunk=512, mask=None,
@@ -335,7 +353,7 @@ def chunked_softmax_xent(h, w_lm, targets, *, chunk=512, mask=None,
     mr = (mask if mask is not None
           else torch.ones(targets.shape, dtype=torch.float32,
                           device=h.device))
-    if _tensor_core_head(h):
+    if _tensor_cores(h):
         return _TensorCoreXent.apply(h, w_lm, targets, mr, chunk)
     return _xent_upcast(h, w_lm, targets, mr, chunk, remat)
 

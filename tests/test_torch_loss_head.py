@@ -272,7 +272,7 @@ def test_cpu_fake_and_f32_take_the_upcast_path(monkeypatch):
                                                       dtype=torch.int32),
                                           chunk=8)
         assert tot.shape == ()
-    assert not ops._tensor_core_head(h)
+    assert not ops._tensor_cores(h)
     assert build.LAUNCHES == before
 
 
